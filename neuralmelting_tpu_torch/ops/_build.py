@@ -1,15 +1,17 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes``. The library lands in
+``nvcc`` compiles each ``csrc/*.cu`` into a shared library of its own with
+a plain C interface, all sources at once (one nvcc process each), and
+loads them with ``ctypes``. The libraries land in
 ``build/neuralmelting_tpu_torch/<hash>/`` under the repository root, keyed
-on a hash of the sources and the flags, so an edit rebuilds and an
+on a hash of all sources and the flags, so an edit rebuilds and an
 unchanged tree reuses the last build. Nothing runs at import time: the
 first CUDA tensor that reaches a kernel wrapper triggers ``load()``.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` and nvcc's default IEEE
-division and denormals, so each kernel's per-pair f32 arithmetic is the
-plain PyTorch version's. No library of ready-made kernels is linked.
+division, square root and denormals, so each kernel's per-pair f32
+arithmetic is the plain PyTorch version's. No library of ready-made
+kernels is linked.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -26,7 +29,6 @@ BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
               / "neuralmelting_tpu_torch")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-LIBNAME = "libnm_cellmc.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -37,6 +39,15 @@ _SIGNATURES = {
     "nm_cellmc_sweep": [_P] * 8 + [_I] * 8 + [_P],
     # nx, ny, nz, K -> dynamic shared memory bytes of the sweep kernel
     "nm_cellmc_sweep_smem": [_I] * 4,
+    # x, y, z, params, scal, c_phi, c_phid, c_rho, c_rhod, c_f, c_fd,
+    # scale, stats, rho, fp, R, nx, ny, nz, K, n_phi, n_rho, n_f,
+    # with_virial, stream
+    "nm_eam_total": [_P] * 15 + [_I] * 9 + [_P],
+    # x, y, z, rho, count, params, scal, c_phi, c_rho, c_f, seeds, stats,
+    # R, nx, ny, nz, K, n_phi, n_rho, n_f, ncyc, rt, stream
+    "nm_eam_sweep": [_P] * 12 + [_I] * 10 + [_P],
+    # nx, ny, nz, K -> dynamic shared memory bytes of the EAM sweep
+    "nm_eam_sweep_smem": [_I] * 4,
 }
 
 _lib = None
@@ -69,38 +80,59 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the library if this source hash has none yet; return it."""
-    out = build_dir() / LIBNAME
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIBNAME}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return out
+def _libpath(src: Path) -> Path:
+    return build_dir() / f"libnm_{src.stem}.so"
+
+
+def build() -> list:
+    """Compile every library this source hash lacks, all nvcc processes
+    started together; return the library paths."""
+    outs = [_libpath(p) for p in sorted(CSRC.glob("*.cu"))]
+    todo = []
+    for src, out in zip(sorted(CSRC.glob("*.cu")), outs):
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        todo.append((cmd, proc, tmp, out))
+    failed = []
+    for cmd, proc, tmp, out in todo:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+        if proc.returncode != 0:
+            failed.append(f"{out.name}: nvcc failed ({proc.returncode}):\n"
+                          f"{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build_log() -> str:
-    p = build_dir() / "build.log"
-    return p.read_text() if p.exists() else ""
+    return "".join(p.read_text() for p in sorted(build_dir().glob("*.log")))
 
 
 def load():
-    """The kernel library, built on first call."""
+    """The kernels' C entry points (one namespace over all libraries),
+    built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = lib
+        fns = {}
+        for path in build():
+            lib = ctypes.CDLL(str(path))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is None:
+                    continue
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        missing = sorted(set(_SIGNATURES) - set(fns))
+        if missing:
+            raise RuntimeError(f"kernel entry points not built: {missing}")
+        _lib = types.SimpleNamespace(**fns)
     return _lib

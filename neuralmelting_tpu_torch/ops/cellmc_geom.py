@@ -30,7 +30,9 @@ INVALID = 1.0e30        # parked coordinate for empty slots
 @dataclasses.dataclass(frozen=True)
 class CellGeom:
     """Static slab geometry: cells of width >= rc, checkerboard stride s
-    (s=2 for pair potentials: same-colour movers cannot interact). Each
+    (s=2 for pair potentials: same-colour movers cannot interact; s=3 for
+    EAM: same-colour movers 2w >= 2rc apart have disjoint neighbourhoods,
+    so their density-coupled acceptances stay exact in parallel). Each
     axis count is divisible by s, so colours tile periodically."""
     ncell: tuple            # (nx, ny, nz), each divisible by stride
     kcap: int               # slots per cell (multiple of 8)
@@ -244,20 +246,23 @@ def shift_cells_up(geom: CellGeom, arr, axis: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _static_cell_axis_np(ncell, kcap, axis):
-    geom = CellGeom(ncell=ncell, kcap=kcap, nsub=1, natoms=0)
+def _static_cell_axis_np(ncell, kcap, stride, axis):
+    geom = CellGeom(ncell=ncell, kcap=kcap, nsub=1, natoms=0, stride=stride)
     return geom_tables(geom)[axis]
 
 
 def rebin_axis(geom: CellGeom, slabs, count, box, delta_frac, axis: int,
-               cell_tab=None):
+               cell_tab=None, extras=()):
     """Advance the grid shift by ``delta_frac`` (< 1/ncell[axis]) along one
     axis: every atom stays in its cell or moves to the cell BELOW it (its
     cell index grows by one as the grid slides). (R, C*K) slabs -> new
     slabs, one stable sort along the 2K axis of (stay | donor) blocks.
 
-    Returns (slabs, count, overflow). The caller advances its shift:
-    shift[axis] += delta_frac. ``count`` is unused (the JAX signature).
+    Returns (slabs, count, overflow), and a tuple of the re-sorted
+    ``extras`` as a fourth item when any are given: per-slot (R, C*K)
+    float data that travels with its atom (the EAM density slab), 0 in
+    empty slots. The caller advances its shift: shift[axis] += delta_frac.
+    ``count`` is unused (the JAX signature).
     """
     x, y, z, ids = slabs
     r = x.shape[0]
@@ -276,7 +281,8 @@ def rebin_axis(geom: CellGeom, slabs, count, box, delta_frac, axis: int,
         (torch.where(valid, coord2, 0.0) / wa).to(torch.int32), max=na - 1)
     if cell_tab is None:
         cell_tab = torch.as_tensor(
-            _static_cell_axis_np(tuple(geom.ncell), k, axis), device=x.device)
+            _static_cell_axis_np(tuple(geom.ncell), k, geom.stride, axis),
+            device=x.device)
     stays = valid & (newc == cell_tab[None, :])
     goes = valid & ~stays
 
@@ -293,8 +299,12 @@ def rebin_axis(geom: CellGeom, slabs, count, box, delta_frac, axis: int,
     keyf = torch.where(bi >= 0, 0.0, 1.0)
     _, order = torch.sort(keyf, dim=2, stable=True)
     order = order[..., :k]
-    out = tuple(torch.gather(a, 2, order).reshape(r, c * k)
-                for a in (bx, by, bz, bi))
+    sort = lambda a: torch.gather(a, 2, order).reshape(r, c * k)
+    out = tuple(sort(a) for a in (bx, by, bz, bi))
     nvalid = torch.sum((bi >= 0).to(torch.int32), dim=-1)   # (R, C)
     overflow = torch.any(nvalid > k)
-    return out, torch.clamp(nvalid, max=k).to(torch.int32), overflow
+    count = torch.clamp(nvalid, max=k).to(torch.int32)
+    if extras:
+        return out, count, overflow, tuple(sort(blocks(e, 0.0))
+                                           for e in extras)
+    return out, count, overflow

@@ -2,9 +2,9 @@
 ``neuralmelting_tpu.pipeline``): sampling -> g(r) and S(q) -> extreme-T
 phase classifier -> T_m per pressure, from one call.
 
-Sampling runs on the cellmc engine (LJ, one process); trajectories stay on
-the device through featurization, and only the slot-ordering of features
-and the logistic fits run on the host.
+Sampling runs on the cellmc engine (LJ or EAM, one process); trajectories
+stay on the device through featurization, and only the slot-ordering of
+features and the logistic fits run on the host.
 """
 
 from __future__ import annotations
@@ -71,10 +71,12 @@ def melting_pipeline(cfg: RunConfig, setfl: Optional[str] = None,
                      seed: int = 0, engine: str = "cellmc",
                      init: str = "lattice",
                      classify_with: Optional[MeltingResult] = None,
-                     device="cpu") -> MeltingResult:
-    """The JAX signature plus ``device``. Only ``engine="cellmc"`` with LJ
-    runs; other engines raise NotImplementedError naming the ROADMAP item
-    that brings them, and ``device="cuda"`` without a GPU raises.
+                     device="cuda") -> MeltingResult:
+    """The JAX signature plus ``device``, the card unless the caller asks
+    for "cpu" (without a usable GPU the default raises). Runs
+    ``engine="cellmc"`` for LJ and for EAM (``element="AL"``, the setfl
+    table ``setfl`` or the synthetic Al table); other engines raise
+    NotImplementedError naming the ROADMAP item that brings them.
 
     init="liquid" pre-melts every replica (runner.liquid_start) for the
     cooling-leg estimate and needs ``classify_with``, the heating leg's

@@ -1,13 +1,17 @@
 """Host-side run orchestration: config -> ensemble -> chunks (counterpart of
-``neuralmelting_tpu.runner``, its single-process cellmc/LJ path).
+``neuralmelting_tpu.runner``, its single-process cellmc path, LJ and EAM).
 
-Builds the LJ potential and the replica ensemble from a ``RunConfig`` on
-an explicit ``device``, bins it into slabs, and advances it in chunks
-with tempering, geometry maintenance (kcap hysteresis, cell-grid refresh)
-and the slab-overflow retry from a pre-chunk snapshot.
+Builds the potential and the replica ensemble from a ``RunConfig`` on a
+``device`` (the card unless the caller passes ``device="cpu"``), bins it
+into slabs, and advances it in chunks with tempering, geometry
+maintenance (kcap hysteresis, cell-grid refresh) and the slab-overflow
+retry from a pre-chunk snapshot. LJ runs on stride-2 cells with kernels
+B1/B2; EAM ("eam/alloy", element "AL") samples the Chebyshev refit of
+its setfl table on stride-3 cells with one mover per cell and a density
+slab, kernels B3/B4.
 
-Not here yet, each named with the ROADMAP item that brings it: EAM (A9),
-the gather/serial engines (A13), the dense engine (A14, not ported), slot
+Not here yet, each named with the ROADMAP item that brings it: the
+gather/serial engines (A13), the dense engine (A14, not ported), slot
 files and checkpoints (A7), coexistence runs without exchange beyond the
 plain ``exchange=False`` chunk (A10), multi-GPU (A12). Unlike the JAX
 runner there is no compile cache (nothing is traced) and no scoped-VMEM
@@ -17,6 +21,8 @@ guard (a TPU compiler limit).
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import time
 import warnings
 from typing import Optional
@@ -24,10 +30,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from neuralmelting_tpu import units
+from neuralmelting_tpu_torch import units
 from neuralmelting_tpu_torch.config import ELEMENTS, RunConfig, grids
+from neuralmelting_tpu_torch.models import eam as eam_mod
+from neuralmelting_tpu_torch.models import eam_cheb, eam_gen
 from neuralmelting_tpu_torch.models.lattice import make_supercell
 from neuralmelting_tpu_torch.models.lj import LJCut
+from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 from neuralmelting_tpu_torch.sampler.state import ensemble_init
@@ -42,7 +51,8 @@ _LATER = {
 @dataclasses.dataclass
 class RunSetup:
     cfg: RunConfig
-    pot: LJCut
+    pot: object                # LJCut, or the sampled EAMCheb
+    style: str                 # "pair" | "eam"
     us: units.UnitSystem
     press: np.ndarray          # (npress,)
     temp: np.ndarray           # (ntemp,)
@@ -54,7 +64,7 @@ class RunSetup:
     device: torch.device
     gen: torch.Generator       # host draws (volume, rebin, exchange)
     geom: object = None
-    slabs: object = None       # (x, y, z, ids) leading-R
+    slabs: object = None       # (x, y, z, ids[, rho]) leading-R
     slab_count: object = None  # (R, C) int32
     shift: object = None       # (3,) fractional grid shift
     cell_tabs: object = None   # (3, C*K) int32 row tables
@@ -74,18 +84,37 @@ def resolve_device(device) -> torch.device:
 
 
 def build_potential(cfg: RunConfig, setfl: Optional[str] = None):
+    """(potential, style): LJCut and "pair", or the setfl table's
+    EAMAlloy and "eam". Without a table the synthetic Al table
+    (models/eam_gen.py) is written into the temp directory once."""
     spec = ELEMENTS[cfg.element].potential
-    if spec.style != "lj/cut" or setfl is not None:
-        raise NotImplementedError(
-            f"potential {spec.style!r}: only lj/cut is ported; EAM comes "
-            "with ROADMAP A9")
-    return LJCut.create(spec.eps, spec.sigma, spec.rc)
+    if spec.style == "lj/cut":
+        return LJCut.create(spec.eps, spec.sigma, spec.rc), "pair"
+    path = setfl or spec.setfl
+    if path is None:
+        path = os.path.join(tempfile.gettempdir(),
+                            "nm_synthetic_Al.eam.alloy")
+        if not os.path.exists(path):
+            # written under a private name and moved in whole: concurrent
+            # first runs never read a half-written table
+            tmp = f"{path}.{os.getpid()}.tmp"
+            eam_gen.write_setfl(tmp)
+            os.replace(tmp, path)
+    return eam_mod.load(path), "eam"
+
+
+def _eam_rho(geom, states, slabs, cheb, dev):
+    """Append the density slab to (x, y, z, ids); exact pe/virial."""
+    scal, series, _ = CE.eam_pack(cheb, dev)
+    states, rho = SC.eam_initial_rho(geom, states, slabs, scal, series)
+    return states, tuple(slabs[:4]) + (rho,)
 
 
 def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
-              engine: str = "cellmc", device="cpu") -> RunSetup:
+              engine: str = "cellmc", device="cuda") -> RunSetup:
     """The ensemble of ``cfg`` on ``device``, binned into slabs with exact
-    energies."""
+    energies. ``device`` is the card unless the caller asks for "cpu";
+    without a usable GPU the default raises."""
     if engine != "cellmc":
         raise NotImplementedError(
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
@@ -95,7 +124,7 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     dev = resolve_device(device)
     el = ELEMENTS[cfg.element]
     us = units.get(el.units)
-    pot = build_potential(cfg, setfl)
+    pot, style = build_potential(cfg, setfl)
     press, temp = grids(cfg)
     npress, ntemp = len(press), len(temp)
     r = npress * ntemp
@@ -108,15 +137,25 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
                            dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev)
     shift = torch.zeros((3,), dtype=torch.float32, device=dev)
-    geom = CG.make_geom(box, pot.rc_host, n)
+    if style == "pair":
+        geom = CG.make_geom(box, pot.rc_host, n)
+    else:
+        # EAM: the Chebyshev form + stride-3 cells with one mover per cell
+        # (2w >= 2rc: exact parallel acceptance of density-coupled moves)
+        pot = eam_cheb.from_spline(pot)
+        geom = CG.make_geom(box, pot.rc_host, n, nsub=1, stride=3)
     geom, slabs, slab_count, over = _bin_tightened(geom, states, shift)
     if bool(over):
         raise RuntimeError("cell slot capacity overflow at setup; raise kcap")
-    states = SC.refresh_energies(geom, states, slabs, pot)
+    if style == "pair":
+        states = SC.refresh_energies(geom, states, slabs, pot)
+    else:
+        states, slabs = _eam_rho(geom, states, slabs, pot, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(cfg.seed))
     return RunSetup(
-        cfg=cfg, pot=pot, us=us, press=press, temp=temp, t_grid=t_grid,
+        cfg=cfg, pot=pot, style=style, us=us, press=press, temp=temp,
+        t_grid=t_grid,
         p_grid=p_grid, states=states,
         slot_of=torch.arange(r, dtype=torch.int32, device=dev), natoms=n,
         device=dev, gen=gen, geom=geom, slabs=slabs,
@@ -148,7 +187,11 @@ def _rebind_cellmc(setup: RunSetup, geom) -> RunSetup:
         slabs, slab_count, over = SC.build_slabs(geom, setup.states, shift)
         if bool(over):
             raise RuntimeError("cell slot overflow persists after rebuild")
-    states = SC.refresh_energies(geom, setup.states, slabs, setup.pot)
+    if setup.style == "eam":
+        states, slabs = _eam_rho(geom, setup.states, slabs, setup.pot,
+                                 setup.device)
+    else:
+        states = SC.refresh_energies(geom, setup.states, slabs, setup.pot)
     return dataclasses.replace(
         setup, geom=geom, slabs=slabs, slab_count=slab_count, shift=shift,
         cell_tabs=torch.as_tensor(CG.geom_tables(geom), device=setup.device),
@@ -219,7 +262,9 @@ def run_sampling(setup: RunSetup, nrecords: Optional[int] = None,
         # the chunk replaces and updates states and slabs; keep the
         # pre-chunk ensemble for the slab-overflow retry below
         pre_states = setup.states.clone()
-        run = SC.make_cellmc_run_fn(
+        make = (SC.make_eam_run_fn if setup.style == "eam"
+                else SC.make_cellmc_run_fn)
+        run = make(
             setup.us.kb, setup.us.p2e, setup.geom, mod=cfg.mod,
             nrecords=nrecords, ncyc=SC.default_ncyc(setup.geom), nvol=nvol,
             factor=cfg.adapt_factor, vol_every=cfg.vol_every,

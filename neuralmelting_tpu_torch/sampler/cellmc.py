@@ -1,20 +1,26 @@
-"""Production LJ engine on the cell-MC kernels (counterpart of
-``neuralmelting_tpu.sampler.cellmc``, the LJ part).
+"""Production engines on the cell-MC kernels (counterpart of
+``neuralmelting_tpu.sampler.cellmc``): LJ and EAM.
 
-NPT Metropolis: position sweeps run inside the B2 sweep kernel
+NPT Metropolis. LJ: position sweeps run inside the B2 sweep kernel
 (ops/cellmc.py ``sweep``: cell-confined checkerboard moves); volume trials
 and drift-free record energetics come from the B1 pair-sum kernel
 (``total``), which gives E(s x) exactly from one pass through LJ's
-homogeneous scaling. Between records positions live in SLABS (binned,
-shifted frame); ``states.pos`` is synced and pe/virial refreshed at every
-record point. Tempering swaps slot identities between replicas.
+homogeneous scaling. EAM (``make_eam_run_fn``): stride-3 colours, one
+mover per cell, and a per-slot density slab that rides with the position
+slabs; the B3 sweep kernel (ops/cellmc_eam.py ``sweep``) updates it on
+every acceptance, and the B4 pass (``total``) recomputes it from scratch
+before the volume trials, once per volume trial at the proposed scale
+(EAM has no homogeneous-scaling shortcut) and at every record. Between
+records positions live in SLABS (binned, shifted frame); ``states.pos``
+is synced and pe/virial refreshed at every record point. Tempering swaps
+slot identities between replicas.
 
 A chunk is a Python loop over sweeps on the device. It reads the sweep
 counter once at its start and otherwise syncs with the host only at its
 end, where the caller reads ``diag``: every schedule decision (volume
 sweeps, rebin axis, exchange phase) is a function of that host counter.
 
-Known deviations from the JAX engine (same stationary distribution):
+Known deviations from the JAX engines (same stationary distribution):
   * host-side draws — volume trials, the rebin shift and the exchange
     uniforms — come from one ``torch.Generator`` on the run's device,
     seeded by the runner and carried across chunks, not from
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from neuralmelting_tpu_torch.ops import cellmc as CK
+from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
 from neuralmelting_tpu_torch.ops import rng
 from neuralmelting_tpu_torch.sampler import tempering
@@ -90,7 +97,7 @@ def tile_seeds(seed0, sweep_id: int, ntiles: int, device):
 
 
 def refresh_energies(geom, states, slabs, pot):
-    """Exact pe/virial for an ensemble from its slabs (setup/rebind)."""
+    """Exact pe/virial for an LJ ensemble from its slabs (setup/rebind)."""
     r = states.temp.shape[0]
     dev = states.box.device
     params = params_of(states, geom, 1.0)     # total reads only w and L
@@ -100,13 +107,180 @@ def refresh_energies(geom, states, slabs, pot):
     return states.replace(pe=e, virial=w)
 
 
+def eam_initial_rho(geom, states, slabs, scal, series):
+    """Density slab + exact pe/virial for a fresh EAM ensemble: returns
+    (states, rho (R, C*K))."""
+    r = states.temp.shape[0]
+    dev = states.box.device
+    params = params_of(states, geom, 1.0)     # total reads only L
+    ones = torch.ones((r,), dtype=torch.float32, device=dev)
+    st, rho = CE.total(geom, slabs[:3], params, scal, series, ones,
+                       with_virial=True)
+    return states.replace(pe=st[:, 0], virial=st[:, 1]), rho
+
+
+# ---------------------------------------------------------------------------
+# pieces shared by both engines
+# ---------------------------------------------------------------------------
+
+def _cells_cover(states, geom, rc2):
+    """diag bit when some cell got narrower than the cutoff."""
+    nx, ny, nz = (float(n) for n in geom.ncell)
+    wmin = torch.min(torch.stack([states.box[:, 0] / nx,
+                                  states.box[:, 1] / ny,
+                                  states.box[:, 2] / nz]))
+    return torch.where(wmin * wmin < rc2, DIAG_CB_INVALID, 0)
+
+
+def _vol_propose(states, gen):
+    """Volume trial: (vol, dv, ok, s) with s the isotropic scale."""
+    r = states.temp.shape[0]
+    u = torch.rand((r,), generator=gen, device=states.box.device)
+    vol = box_volume(states.box)
+    dv = states.dvol * (2.0 * u - 1.0)
+    ok = (vol + dv) > 0.0
+    s = torch.where(ok, torch.pow(torch.clamp(vol + dv, min=1e-6) / vol,
+                                  1.0 / 3.0), 1.0)
+    return vol, dv, ok, s
+
+
+def _vol_accept(states, e_old, e_new, vol, dv, ok, n, kb, p2e, gen):
+    """NPT Metropolis of a volume trial (with the V^N Jacobian)."""
+    r = states.temp.shape[0]
+    beta = 1.0 / (kb * states.temp)
+    ln_acc = (-beta * ((e_new - e_old) + states.press * p2e * dv)
+              + n * torch.log(torch.where(ok, (vol + dv) / vol, 1.0)))
+    # 1 - U[0,1) lies in (0, 1]: log-safe
+    ln_u = torch.log(1.0 - torch.rand((r,), generator=gen,
+                                      device=states.box.device))
+    return ok & (ln_u < ln_acc)
+
+
+def _rescale(slabs3, sca):
+    return tuple(torch.where(a < 0.1 * CG.INVALID, a * sca, a)
+                 for a in slabs3)
+
+
+def _rebin(geom, rebin_every, sweep_id, slabs4, count, shift, box,
+           cell_tabs, gen, diag, extras=()):
+    """Grid-shift rebinning, one axis per rebin event; ``extras`` travel
+    with their atoms."""
+    if sweep_id % rebin_every != 0:
+        return slabs4, count, shift, diag, extras
+    # the axis rotates per EVENT, so rebin_every % 3 == 0 cannot pin one
+    # axis
+    a = (sweep_id // rebin_every) % 3
+    du = torch.rand((), generator=gen, device=box.device)
+    delta = du * (0.9 / geom.ncell[a])
+    out = CG.rebin_axis(geom, slabs4, count, box, delta, a,
+                        cell_tab=cell_tabs[a], extras=extras)
+    slabs4, count, over = out[:3]
+    shift = shift.clone()
+    shift[a] += delta
+    diag = diag | torch.where(over, DIAG_SLAB_OVERFLOW, 0)
+    return slabs4, count, shift, diag, (out[3] if extras else ())
+
+
+def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
+                  exchange, npress, ntemp, kin_of, sweep_step, record_totals):
+    """The chunk loops of both engines around their ``sweep_step``.
+
+    ``kin_of(pot, device)``: the kernels' inputs of a chunk;
+    ``sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles)``
+    advances st = (states, slabs, count, shift, diag, tried) one sweep;
+    ``record_totals(states, slabs, kin) -> (pe, virial, slabs)`` gives the
+    drift-free energetics at a record point."""
+
+    def block_core(st, sweep0, kin, cell_tabs, seed0, gen, rtt, ntiles):
+        for i in range(mod):
+            st = sweep_step(st, sweep0 + i, kin, cell_tabs, seed0, gen, rtt,
+                            ntiles)
+        states, slabs, count, shift, diag, tried = st
+        # drift-free energetics + position sync at the record point
+        pe, w, slabs = record_totals(states, slabs, kin)
+        pos = CG.unbin(geom, slabs, states.box, shift)
+        states = states.replace(pe=pe, virial=w, pos=pos)
+        rec = make_record(states, kb)
+        states = adapt_step_sizes(states, targets=targets, factor=factor)
+        frame = (states.pos, states.box.clone()) if write_traj else None
+        return (states, slabs, count, shift, diag, tried), rec, frame
+
+    def start(states, pot):
+        r = states.temp.shape[0]
+        dev = states.box.device
+        rtt = pick_rt(r)
+        sweep0 = int(states.sweep[0])
+        diag = torch.zeros((), dtype=torch.int32, device=dev)
+        tried = torch.zeros((), dtype=torch.int64, device=dev)
+        return rtt, -(-r // rtt), sweep0, kin_of(pot, dev), diag, tried
+
+    def finish(recs, frames):
+        recs = stack_records(recs)
+        if write_traj:
+            frames = (torch.stack([f[0] for f in frames]),
+                      torch.stack([f[1] for f in frames]))
+        else:
+            frames = None
+        return recs, frames
+
+    if not exchange:
+        def run(states, slabs, count, shift, pot, cell_tabs, seed0, gen):
+            rtt, ntiles, sweep0, kin, diag, tried = start(states, pot)
+            st = (states, slabs, count, shift, diag, tried)
+            recs, frames = [], []
+            for b in range(nrecords):
+                st, rec, frame = block_core(st, sweep0 + b * mod, kin,
+                                            cell_tabs, seed0, gen, rtt,
+                                            ntiles)
+                recs.append(rec)
+                frames.append(frame)
+            states, slabs, count, shift, diag, tried = st
+            recs, frames = finish(recs, frames)
+            return (states, slabs, count, shift, recs, frames, diag, tried)
+
+        return run
+
+    if npress * ntemp <= 0:
+        raise ValueError("the exchange runner needs the (P, T) grid shape")
+
+    def run_x(states, slabs, count, shift, slot_of, gen, pot, cell_tabs,
+              t_grid, p_grid, seed0):
+        rtt, ntiles, sweep0, kin, diag, tried = start(states, pot)
+        st = (states, slabs, count, shift, diag, tried)
+        recs, frames, hist, xacc = [], [], [], []
+        r = states.temp.shape[0]
+        for event_idx in range(nrecords):
+            st, rec, frame = block_core(st, sweep0 + event_idx * mod, kin,
+                                        cell_tabs, seed0, gen, rtt, ntiles)
+            states = st[0]
+            hist.append(slot_of)
+            u = 1.0 - torch.rand((r,), generator=gen, device=slot_of.device)
+            states, slot_of, n_acc = tempering.exchange_event(
+                states, slot_of, u, event_idx, npress, ntemp, t_grid,
+                p_grid, kb, p2e)
+            st = (states,) + st[1:]
+            recs.append(rec)
+            frames.append(frame)
+            xacc.append(n_acc)
+        states, slabs, count, shift, diag, tried = st
+        recs, frames = finish(recs, frames)
+        return (states, slabs, count, shift, slot_of, recs, frames,
+                torch.stack(hist), torch.stack(xacc), diag, tried)
+
+    return run_x
+
+
+# ---------------------------------------------------------------------------
+# LJ engine (stride-2 cells, kernels B1/B2)
+# ---------------------------------------------------------------------------
+
 def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
                        ncyc: int = 4, nvol: int = 1,
                        targets=(0.5, 0.5, 0.5), factor: float = 1.0625,
                        write_traj: bool = False, exchange: bool = False,
                        npress: int = 0, ntemp: int = 0,
                        vol_every: int = 1, rebin_every: int = 1):
-    """Build the chunk runner.
+    """Build the LJ chunk runner.
 
     Without exchange:
       ``run(states, slabs, count, shift, pot, cell_tabs, seed0, gen) ->
@@ -129,21 +303,14 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
     ``sweep % rebin_every == 0`` (deterministic, state-independent
     schedules that leave the NPT distribution invariant).
     """
-    nxf, nyf, nzf = (float(n) for n in geom.ncell)
-    deltas = [0.9 / n for n in geom.ncell]
 
-    def sweep_step(st, sweep_id, pot, pot3, cell_tabs, seed0, gen, rtt,
-                   ntiles):
+    def sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles):
+        pot, pot3 = kin
         states, slabs, count, shift, diag, tried = st
         x, y, z, ids = slabs
         r = x.shape[0]
         dev = x.device
-
-        # geometry validity: every cell must still cover rc
-        wmin = torch.min(torch.stack([states.box[:, 0] / nxf,
-                                      states.box[:, 1] / nyf,
-                                      states.box[:, 2] / nzf]))
-        diag = diag | torch.where(wmin < pot.rc, DIAG_CB_INVALID, 0)
+        diag = diag | _cells_cover(states, geom, pot.rc * pot.rc)
 
         # --- position sweep (kernel B2, in place) -------------------
         seeds = tile_seeds(seed0, sweep_id, ntiles, dev)
@@ -158,33 +325,17 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
 
         # --- volume trials (kernel B1; E(s x) exact) -----------------
         if nvol > 0 and sweep_id % vol_every == 0:
-            n = geom.natoms
             for _ in range(nvol):
-                u = torch.rand((r,), generator=gen, device=dev)
-                vol = box_volume(states.box)
-                dv = states.dvol * (2.0 * u - 1.0)
-                ok = (vol + dv) > 0.0
-                s = torch.where(
-                    ok, torch.pow(torch.clamp(vol + dv, min=1e-6) / vol,
-                                  1.0 / 3.0), 1.0)
+                vol, dv, ok, s = _vol_propose(states, gen)
                 # params track the box accepted by an earlier trial (the
                 # stencil's +-L image correction reads them)
                 params = params_of(states, geom, kb)
                 sums = CK.total(geom, (x, y, z), params, pot3, s)
                 e_old, w_old, e_new = CK.combine_sums(sums, pot.eps, s)
-                beta = 1.0 / (kb * states.temp)
-                ln_acc = (-beta * ((e_new - e_old)
-                                   + states.press * p2e * dv)
-                          + n * torch.log(torch.where(ok, (vol + dv) / vol,
-                                                      1.0)))
-                # 1 - U[0,1) lies in (0, 1]: log-safe
-                ln_u = torch.log(1.0 - torch.rand((r,), generator=gen,
-                                                  device=dev))
-                acc = ok & (ln_u < ln_acc)
+                acc = _vol_accept(states, e_old, e_new, vol, dv, ok,
+                                  geom.natoms, kb, p2e, gen)
                 sca = torch.where(acc, s, 1.0)[:, None]
-                x = torch.where(x < 0.1 * CG.INVALID, x * sca, x)
-                y = torch.where(y < 0.1 * CG.INVALID, y * sca, y)
-                z = torch.where(z < 0.1 * CG.INVALID, z * sca, z)
+                x, y, z = _rescale((x, y, z), sca)
                 states = states.replace(
                     box=states.box * sca,
                     pe=torch.where(acc, e_new, e_old),   # drift-free both
@@ -193,104 +344,112 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
                     ntv=states.ntv + 1)
             tried = tried + nvol * r
 
-        # --- grid-shift rebinning (one axis per rebin event) ---------
-        if sweep_id % rebin_every == 0:
-            # the axis rotates per EVENT, so rebin_every % 3 == 0 cannot
-            # pin one axis
-            a = (sweep_id // rebin_every) % 3
-            du = torch.rand((), generator=gen, device=dev)
-            delta = du * deltas[a]
-            (x, y, z, ids), count, over = CG.rebin_axis(
-                geom, (x, y, z, ids), count, states.box, delta, a,
-                cell_tab=cell_tabs[a])
-            shift = shift.clone()
-            shift[a] += delta
-            diag = diag | torch.where(over, DIAG_SLAB_OVERFLOW, 0)
-
+        (x, y, z, ids), count, shift, diag, _ = _rebin(
+            geom, rebin_every, sweep_id, (x, y, z, ids), count, shift,
+            states.box, cell_tabs, gen, diag)
         states = states.replace(sweep=states.sweep + 1)
         return (states, (x, y, z, ids), count, shift, diag, tried)
 
-    def block_core(st, sweep0, pot, pot3, cell_tabs, seed0, gen, rtt,
-                   ntiles):
-        for i in range(mod):
-            st = sweep_step(st, sweep0 + i, pot, pot3, cell_tabs, seed0,
-                            gen, rtt, ntiles)
-        states, slabs, count, shift, diag, tried = st
-        # drift-free energetics + position sync at the record point
+    def record_totals(states, slabs, kin):
+        pot, pot3 = kin
         r = states.temp.shape[0]
-        dev = states.box.device
         params = params_of(states, geom, kb)
-        ones = torch.ones((r,), dtype=torch.float32, device=dev)
+        ones = torch.ones((r,), dtype=torch.float32, device=states.box.device)
         sums = CK.total(geom, slabs[:3], params, pot3, ones)
         e, w, _ = CK.combine_sums(sums, pot.eps, ones)
-        pos = CG.unbin(geom, slabs, states.box, shift)
-        states = states.replace(pe=e, virial=w, pos=pos)
-        rec = make_record(states, kb)
-        states = adapt_step_sizes(states, targets=targets, factor=factor)
-        frame = (states.pos, states.box.clone()) if write_traj else None
-        return (states, slabs, count, shift, diag, tried), rec, frame
+        return e, w, slabs
 
-    def start(states, pot):
-        r = states.temp.shape[0]
-        dev = states.box.device
-        rtt = pick_rt(r)
-        sweep0 = int(states.sweep[0])
-        diag = torch.zeros((), dtype=torch.int32, device=dev)
-        tried = torch.zeros((), dtype=torch.int64, device=dev)
-        return rtt, -(-r // rtt), sweep0, pot.pot3(dev), diag, tried
+    return _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor,
+                         write_traj, exchange, npress, ntemp,
+                         lambda pot, dev: (pot, pot.pot3(dev)), sweep_step,
+                         record_totals)
 
-    def finish(recs, frames):
-        recs = stack_records(recs)
-        if write_traj:
-            frames = (torch.stack([f[0] for f in frames]),
-                      torch.stack([f[1] for f in frames]))
-        else:
-            frames = None
-        return recs, frames
 
-    if not exchange:
-        def run(states, slabs, count, shift, pot, cell_tabs, seed0, gen):
-            rtt, ntiles, sweep0, pot3, diag, tried = start(states, pot)
-            st = (states, slabs, count, shift, diag, tried)
-            recs, frames = [], []
-            for b in range(nrecords):
-                st, rec, frame = block_core(st, sweep0 + b * mod, pot, pot3,
-                                            cell_tabs, seed0, gen, rtt,
-                                            ntiles)
-                recs.append(rec)
-                frames.append(frame)
-            states, slabs, count, shift, diag, tried = st
-            recs, frames = finish(recs, frames)
-            return (states, slabs, count, shift, recs, frames, diag, tried)
+# ---------------------------------------------------------------------------
+# EAM engine (stride-3 cells, density slab, kernels B3/B4)
+# ---------------------------------------------------------------------------
 
-        return run
+def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
+                    ncyc: int = 8, nvol: int = 1,
+                    targets=(0.5, 0.5, 0.5), factor: float = 1.0625,
+                    write_traj: bool = False, exchange: bool = False,
+                    npress: int = 0, ntemp: int = 0,
+                    vol_every: int = 1, rebin_every: int = 1):
+    """EAM twin of ``make_cellmc_run_fn``, with the same two signatures;
+    ``pot`` is the ``EAMCheb`` (models/eam_cheb.py) and ``slabs`` =
+    (x, y, z, ids, rho) leading-R, rho the per-slot density cache (exact
+    at every record).
 
-    if npress * ntemp <= 0:
-        raise ValueError("the exchange runner needs the (P, T) grid shape")
+    Per sweep: the B3 sweep; on volume sweeps one s=1 B4 pass that
+    refreshes pe and the density cache (the incrementally accumulated pe
+    carries f32 drift since the last record), then each of the ``nvol``
+    trials as a full B4 pass at the proposed scale, whose density slab an
+    accepted trial keeps; the rebin carries rho. Each record runs a B4
+    pass with the virial.
+    """
 
-    def run_x(states, slabs, count, shift, slot_of, gen, pot, cell_tabs,
-              t_grid, p_grid, seed0):
-        rtt, ntiles, sweep0, pot3, diag, tried = start(states, pot)
-        st = (states, slabs, count, shift, diag, tried)
-        recs, frames, hist, xacc = [], [], [], []
-        r = states.temp.shape[0]
-        for event_idx in range(nrecords):
-            st, rec, frame = block_core(st, sweep0 + event_idx * mod, pot,
-                                        pot3, cell_tabs, seed0, gen, rtt,
-                                        ntiles)
-            states = st[0]
-            hist.append(slot_of)
-            u = 1.0 - torch.rand((r,), generator=gen, device=slot_of.device)
-            states, slot_of, n_acc = tempering.exchange_event(
-                states, slot_of, u, event_idx, npress, ntemp, t_grid,
-                p_grid, kb, p2e)
-            st = (states,) + st[1:]
-            recs.append(rec)
-            frames.append(frame)
-            xacc.append(n_acc)
+    def sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles):
+        scal, series = kin
         states, slabs, count, shift, diag, tried = st
-        recs, frames = finish(recs, frames)
-        return (states, slabs, count, shift, slot_of, recs, frames,
-                torch.stack(hist), torch.stack(xacc), diag, tried)
+        x, y, z, ids, rho = slabs
+        r = x.shape[0]
+        dev = x.device
+        diag = diag | _cells_cover(states, geom, scal[0])
 
-    return run_x
+        # --- position sweep (kernel B3, x, y, z, rho in place) --------
+        seeds = tile_seeds(seed0, sweep_id, ntiles, dev)
+        params = params_of(states, geom, kb)
+        stt = CE.sweep(geom, ncyc, rtt, (x, y, z, rho), count, params, scal,
+                       series, seeds)
+        states = states.replace(
+            pe=states.pe + stt[:, 0],
+            nap=states.nap + stt[:, 1].to(torch.int32),
+            ntp=states.ntp + stt[:, 2].to(torch.int32))
+        tried = tried + stt[:, 2].sum().to(torch.int64)
+
+        # --- volume trials (kernel B4, one full pass each) ------------
+        if nvol > 0 and sweep_id % vol_every == 0:
+            ones = torch.ones((r,), dtype=torch.float32, device=dev)
+            params = params_of(states, geom, kb)
+            st1, rho = CE.total(geom, (x, y, z), params, scal, series, ones,
+                                with_virial=False)
+            states = states.replace(pe=st1[:, 0])        # exact e_old
+            for _ in range(nvol):
+                vol, dv, ok, s = _vol_propose(states, gen)
+                params = params_of(states, geom, kb)
+                stt, rho_s = CE.total(geom, (x, y, z), params, scal, series,
+                                      s, with_virial=False)
+                e_new = stt[:, 0]
+                acc = _vol_accept(states, states.pe, e_new, vol, dv, ok,
+                                  geom.natoms, kb, p2e, gen)
+                sca = torch.where(acc, s, 1.0)[:, None]
+                x, y, z = _rescale((x, y, z), sca)
+                rho = torch.where(acc[:, None], rho_s, rho)
+                states = states.replace(
+                    box=states.box * sca,
+                    pe=torch.where(acc, e_new, states.pe),
+                    nav=states.nav + acc.to(torch.int32),
+                    ntv=states.ntv + 1)
+            tried = tried + nvol * r
+
+        (x, y, z, ids), count, shift, diag, extras = _rebin(
+            geom, rebin_every, sweep_id, (x, y, z, ids), count, shift,
+            states.box, cell_tabs, gen, diag, extras=(rho,))
+        if extras:
+            (rho,) = extras
+        states = states.replace(sweep=states.sweep + 1)
+        return (states, (x, y, z, ids, rho), count, shift, diag, tried)
+
+    def record_totals(states, slabs, kin):
+        scal, series = kin
+        r = states.temp.shape[0]
+        params = params_of(states, geom, kb)
+        ones = torch.ones((r,), dtype=torch.float32, device=states.box.device)
+        st, rho = CE.total(geom, slabs[:3], params, scal, series, ones,
+                           with_virial=True)
+        return st[:, 0], st[:, 1], slabs[:4] + (rho,)
+
+    return _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor,
+                         write_traj, exchange, npress, ntemp,
+                         lambda pot, dev: CE.eam_pack(pot, dev)[:2],
+                         sweep_step, record_totals)

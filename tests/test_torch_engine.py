@@ -192,7 +192,7 @@ def test_midchunk_overflow_retries_and_keeps_atoms(monkeypatch):
                     npress=1, ntemp=2, press=(1.0,), temp=(0.8, 1.2),
                     nsmpl=1, mod=6, seed=3, dpos0=0.1, dvol0=0.01,
                     rebin_every=1)
-    setup = runner.setup_run(cfg, engine="cellmc")
+    setup = runner.setup_run(cfg, engine="cellmc", device="cpu")
     monkeypatch.setattr(runner, "_refresh_cellmc_geom", lambda s: s)
     mx = int(setup.slab_count.max())
     kc = -(-mx // 8) * 8
@@ -227,7 +227,7 @@ def test_run_sampling_without_exchange_keeps_slots():
     cfg = RunConfig(name="noex", element="LJ", ncells=(4, 4, 4), npress=1,
                     ntemp=2, press=(1.0,), temp=(0.8, 1.2), nsmpl=2, mod=2,
                     seed=5)
-    setup = runner.setup_run(cfg, engine="cellmc")
+    setup = runner.setup_run(cfg, engine="cellmc", device="cpu")
     setup, recs, frames, hist, xacc, diag = runner.run_sampling(
         setup, exchange=False)
     assert diag == 0

@@ -1,8 +1,9 @@
 """The port's slice as a whole.
 
-(a) In a fresh interpreter: import every module of neuralmelting_tpu_torch
-    and run its CPU pipeline at a tiny config; jax, flax and optax must
-    stay out of sys.modules.
+(a) In a fresh interpreter: import every module of neuralmelting_tpu_torch,
+    run its CPU pipeline at a tiny LJ config and one EAM chunk; jax, flax,
+    optax and every module of the JAX package neuralmelting_tpu must stay
+    out of sys.modules.
 (b) The port's melting_pipeline(engine="cellmc", device="cpu") against
     the JAX package's melting_pipeline(engine="gather") at the same tiny
     config (256 atoms, P*=1, 6 temperatures 0.55-1.45, 10 records of 8
@@ -46,8 +47,20 @@ cfg = RunConfig(name="nojax", element="LJ", ncells=(4, 4, 4), npress=1,
 res = melting_pipeline(cfg, nbins=16, model="mlp", epochs=3, band=1,
                        device="cpu")
 assert res.diag == 0 and res.probs.shape == (1, 2), res
+import os, tempfile
+from neuralmelting_tpu_torch import runner
+from neuralmelting_tpu_torch.models import eam_gen
+table = os.path.join(tempfile.mkdtemp(), "al38.eam.alloy")
+eam_gen.write_setfl(table, rc=3.8)
+al = RunConfig(name="nojax", element="AL", ncells=(4, 4, 4), npress=1,
+               ntemp=1, press=(1.0,), temp=(900.0,), nsmpl=1, mod=1,
+               ncut=0, seed=1)
+setup = runner.setup_run(al, setfl=table, device="cpu")
+setup, recs, frames, hist, xacc, diag = runner.run_sampling(setup)
+assert diag == 0 and setup.style == "eam", diag
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "neuralmelting_tpu"))
 print("FOREIGN", bad)
 """
 
@@ -60,15 +73,22 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_rejects_unported_engines_and_missing_gpu():
+    """Unported engines raise naming their ROADMAP item, for LJ and EAM
+    alike; the entry points run on the card unless asked for the CPU, so
+    without a GPU their defaults raise."""
     cfg = RunConfig(ncells=(4, 4, 4), npress=1, ntemp=2)
-    for engine in ("gather", "dense", "serial"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.setup_run(cfg, engine=engine)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TR.setup_run(RunConfig(element="AL", ncells=(4, 4, 4), npress=1,
-                               ntemp=2), engine="cellmc")
+    al = RunConfig(element="AL", ncells=(4, 4, 4), npress=1, ntemp=2)
+    for c in (cfg, al):
+        for engine in ("gather", "dense", "serial"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                TR.setup_run(c, engine=engine)
     import torch
     if not torch.cuda.is_available():
+        for c in (cfg, al):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                TR.setup_run(c)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TP.melting_pipeline(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             TP.melting_pipeline(cfg, device="cuda")
 
