@@ -4,7 +4,7 @@
 
 Phases, in order (any failed check exits non-zero):
   1. build       — compile the CUDA kernels from neuralmelting_tpu_torch/csrc
-                   (one nvcc per source, all at once);
+                   (one nvcc per source, all at once, then one link);
   LJ path (kernels B1 total, B2 sweep):
   2. small       — B1 and B2 against their plain PyTorch versions at the
                    rc=1.5 test geometry, R=3 and R=130 (two 128-replica
@@ -31,12 +31,12 @@ Phases, in order (any failed check exits non-zero):
                    default device at that configuration with a short
                    schedule; B3/B4 counters zeroed before and read after;
   9. eam-physics — docs/VALIDATION.md config 3, the heating leg as
-                   scripts/eam_tm_ab.py pins it: diag 0, T_m inside the
-                   grid and the NPT virial-pressure closure over the
-                   records (the repo's EAM physics oracle); T_m is
-                   printed against the JAX cellmc leg's 1766.3 K
-                   (eam_tm_ab.json "clong") beside its spread over
-                   classifier initialisations.
+                   scripts/eam_tm_ab.py pins it, as 8 chains (seeds 5-12)
+                   held to the JAX gather engine's chains of the same
+                   seeds (eam_config3_gather.json): per slot pe/N, V and
+                   the virial pressure, and T_m of one classifier
+                   trained on either side's features, each within 4
+                   standard errors; diag 0 and T_m inside the grid.
 
 The last lines are the card's name and power limit (nvidia-smi), the
 kernels' JSON line (each kernel's launches on its path's main run, error
@@ -77,9 +77,11 @@ from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
+from neuralmelting_tpu_torch.profile_chunk import configs
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 
 DEV = torch.device("cuda")
+FULL = configs()     # LJ north star, EAM eambench: 4096 atoms each
 KERNELS = {
     "sweep": dict(name="cellmc_sweep (B2)", route="cuda",
                   source="neuralmelting_tpu_torch/csrc/cellmc_sweep.cu",
@@ -96,6 +98,12 @@ KERNELS = {
         source="neuralmelting_tpu_torch/csrc/cellmc_eam_total.cu",
         replaces="neuralmelting_tpu/ops/pallas/cellmc_eam.py:351"),
 }
+# the JAX gather engine's config-3 chains (scripts/eam_config3_reference.py)
+REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "eam_config3_gather.json")
+Z_PHYS = 4.0            # standard errors allowed between port and JAX
+CLF_SEEDS = range(4)    # classifier initial weights per chain
+KB_EV = 8.617333262e-5
 ERR = {k: 0.0 for k in KERNELS}
 TIMES = {}
 BOUND = {}
@@ -109,7 +117,7 @@ F32_OPS = 67e12
 OPS_LJ_TOTAL = 20
 # LJ sweep: two r^2 (16), one shared divide, the e(new) - e(old) algebra
 OPS_LJ_SWEEP = 30
-# EAM: one r^2 (8) plus masks and the image shift per candidate slot
+# EAM: one r^2 (8) plus masks and the image shift per candidate pair
 # (twice, old and new, in the sweep); a Clenshaw term is 3 operations
 OPS_EAM_CAND = 12
 OPS_EAM_SWEEP_CAND = 20
@@ -161,16 +169,6 @@ def small_case(r, rc=1.5, seed=0, nsub=16):
     pot3 = torch.tensor([1.0, 1.0, rc, 0.0], device=DEV)
     return geom, (x, y, z), ids, count, \
         torch.as_tensor(params, device=DEV), pot3
-
-
-def full_setup():
-    cfg = RunConfig(
-        name="smoke", element="LJ", ncells=(16, 8, 8),     # 4096 atoms
-        npress=32, ntemp=32,
-        press=tuple(float(p) for p in np.linspace(1.0, 8.0, 32)),
-        temp=tuple(float(t) for t in np.linspace(0.7, 1.3, 32)),
-        nsmpl=4, mod=8, ncut=1, seed=1234, dpos0=0.11, dvol0=0.002)
-    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +299,10 @@ def pairs_within(geom, slabs, params, rc2):
 
 def phase_build():
     t = time.perf_counter()
-    libs = _build.build()
+    lib = _build.build()
     ver = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
-    log(f"[build] {len(libs)} libraries in {time.perf_counter() - t:.1f} s; "
+    log(f"[build] {lib.name} in {time.perf_counter() - t:.1f} s; "
         f"nvcc: {ver[-1]}; torch "
         f"{torch.__version__} (CUDA {torch.version.cuda}); "
         f"python {sys.version.split()[0]}")
@@ -326,7 +324,7 @@ def phase_small():
 
 
 def phase_full(name):
-    cfg = full_setup()
+    cfg = FULL["lj"]
     setup = runner.setup_run(cfg, engine="cellmc", device=DEV)
     geom = setup.geom
     r = setup.states.temp.shape[0]
@@ -356,7 +354,7 @@ def phase_full(name):
     # least time for the same work on these inputs
     cnt = setup.slab_count.to(torch.float64)
     rows = r * geom.rows
-    pairs = float((cnt * (cnt - 1)).sum()
+    pairs = float((cnt * (cnt - 1) / 2).sum()
                   + (cnt * stencil_sum(geom, setup.slab_count,
                                        CG.offsets13())).sum())
     BOUND["total"] = bound(4 * (3 * rows + 10 * r + 4) + 4 * 8 * r,
@@ -374,7 +372,7 @@ def phase_full(name):
 
 
 def phase_main(name):
-    cfg = full_setup()
+    cfg = FULL["lj"]
     CK.reset_launches()
     res = melting_pipeline(cfg, nbins=64, model="cnn", epochs=100,
                            engine="cellmc")
@@ -529,16 +527,6 @@ def compare_eam_sweep(geom, slabs, ids, count, params, scal, series, rt,
     return ks
 
 
-def eam_full_config():
-    """scripts/eambench.py's moves/s configuration."""
-    return RunConfig(
-        name="eamsmoke", element="AL", ncells=(16, 8, 8),     # 4096 atoms
-        npress=16, ntemp=16,
-        press=tuple(float(p) for p in np.linspace(1.0, 5000.0, 16)),  # bar
-        temp=tuple(float(t) for t in np.linspace(600.0, 1400.0, 16)),
-        nsmpl=4, mod=8, ncut=1, seed=11, dpos0=0.15, dvol0=0.002)
-
-
 def phase_eam_small(table):
     cheb = eam_cheb.from_spline(eam_mod.load(table))
     scal, series, nser = CE.eam_pack(cheb, DEV)
@@ -556,7 +544,7 @@ def phase_eam_small(table):
 
 
 def phase_eam_full(name, table):
-    setup = runner.setup_run(eam_full_config(), setfl=table,
+    setup = runner.setup_run(FULL["eam"], setfl=table,
                              engine="cellmc", device=DEV)
     geom = setup.geom
     r = setup.states.temp.shape[0]
@@ -587,9 +575,14 @@ def phase_eam_full(name, table):
                                        ones, False), 1))
     ms_v = cuda_ms(lambda: CE.total(geom, slabs, params, scal, series, ones,
                                     True), 5)
-    # least time for the same work on these inputs: candidate slots of
-    # the 27-cell stencils, and Clenshaw terms for the pairs inside rc
+    # least time for the same work on these inputs. B4's phi and rho
+    # terms are symmetric in i and j, so a pass needs each unordered
+    # candidate pair (half stencil) once and a Clenshaw pair term for
+    # each unordered pair inside rc; a B3 trial needs its mover's 27
+    # cells at the old and the new position
     cnt = count.to(torch.float64)
+    half = float((cnt * (cnt - 1) / 2
+                  + cnt * stencil_sum(geom, count, CG.offsets13())).sum())
     cand = stencil_sum(geom, count, STENCIL27) - 1.0
     n_in = pairs_within(geom, slabs, params, float(scal[0]))
     natoms = r * geom.natoms
@@ -599,8 +592,8 @@ def phase_eam_full(name, table):
     nser_all = 2 * (n_phi + n_rho + n_f)
     BOUND["eam_total"] = bound(
         4 * (3 * rows + 9 * r + 8 + nser_all) + 4 * (8 * r + rows),
-        float((cnt * cand).sum()) * OPS_EAM_CAND
-        + n_in * (n_phi + n_rho) * 3 + natoms * (3 * n_f + 4))
+        half * OPS_EAM_CAND + n_in / 2 * (n_phi + n_rho) * 3
+        + natoms * (3 * n_f + 4))
     occupied = (count > 0).to(torch.float64)
     trials = ncyc * float(occupied.sum())
     BOUND["eam_sweep"] = bound(
@@ -609,8 +602,9 @@ def phase_eam_full(name, table):
         ncyc * float((occupied * cand).sum()) * OPS_EAM_SWEEP_CAND
         + trials * (2 * nbar * (n_phi + n_rho) * 3 + 2 * nbar * n_f * 3
                     + 2 * n_f * 3))
-    log(f"[eam-full] pairs inside rc {n_in} ({nbar:.2f} per atom), "
-        f"{trials:.0f} trials per sweep; B4 with the virial {ms_v:.3f} ms")
+    log(f"[eam-full] ordered pairs inside rc {n_in} ({nbar:.2f} per "
+        f"atom), {trials:.0f} trials per sweep; B4 with the virial "
+        f"{ms_v:.3f} ms")
     for k in ("eam_sweep", "eam_total"):
         ms, pms = TIMES[k]
         log(f"[eam-full] {k}: kernel {ms:.3f} ms, plain {pms:.3f} ms per "
@@ -620,7 +614,7 @@ def phase_eam_full(name, table):
 
 
 def phase_eam_main(name, table):
-    cfg = eam_full_config()
+    cfg = FULL["eam"]
     CE.reset_launches()
     res = melting_pipeline(cfg, setfl=table, nbins=64, model="cnn",
                            epochs=100, engine="cellmc")
@@ -649,80 +643,115 @@ def phase_eam_main(name, table):
           "[eam-main] record pe/N not finite or outside (-3.5, -2.5) eV")
 
 
-def tm_over_classifier_seeds(res, seeds, nbins):
-    """T_m of the same sampled features (res.g_slot) with the pipeline's
-    classifier trained from other initial weights (seed 0 is the
-    pipeline's own)."""
+def config3(seed):
+    """docs/VALIDATION.md config 3, the heating leg as scripts/eam_tm_ab.py
+    pins it, with the chain seed given."""
+    return RunConfig(name="eamval", element="AL", ncells=(4, 4, 4),
+                     npress=1, ntemp=10, press=(1.0,),
+                     temp=tuple(float(t) for t in np.linspace(400.0, 2200.0,
+                                                              10)),
+                     nsmpl=40, mod=20, ncut=15, dpos0=0.1, dvol0=0.01,
+                     seed=seed)
+
+
+def slot_batches(res, ncut, nbatch, natoms):
+    """Per temperature slot, batch means (nbatch, ntemp) of pe/N, V and
+    the virial pressure (N kB T + W/3)/V over the records after the
+    burn-in, as scripts/eam_config3_reference.py takes them."""
+    rec = res.records
+    order = torch.argsort(rec.temp, dim=1)
+
+    def take(v):
+        return torch.gather(v, 1, order)[ncut:].double().cpu().numpy()
+
+    temp, vol = take(rec.temp), take(rec.vol)
+    vals = {"pe_per_atom_eV": take(rec.pe) / natoms, "vol_A3": vol,
+            "pvir_eV_per_A3": (natoms * KB_EV * temp + take(rec.virial) / 3.0)
+            / vol}
+    return {k: np.stack([c.mean(0) for c in np.array_split(v, nbatch)])
+            for k, v in vals.items()}
+
+
+def classifier_tm(g_slot, temp, seeds):
+    """Mean T_m over the port's classifier trained on these features from
+    each initial-weight seed (the pipeline's recipe: tanh scaler, CNN,
+    extreme-T labels, 400 epochs)."""
     x = get_scaler("tanh").fit_transform(
-        torch.as_tensor(res.g_slot, dtype=torch.float32, device=DEV))
-    mask, labels = extreme_t_labels(len(res.temp), 1, device=DEV)
+        torch.as_tensor(np.asarray(g_slot), dtype=torch.float32, device=DEV))
+    mask, labels = extreme_t_labels(len(temp), 1, device=DEV)
     out = []
     for seed in seeds:
-        net = PhaseCNN(nbins).to(DEV)
+        net = PhaseCNN(x.shape[1]).to(DEV)
         init_params(net, torch.Generator().manual_seed(seed))
         fit = train_classifier(net, x, mask, labels, epochs=400, lr=2e-3)
-        tm, _ = melting_curve(res.temp,
-                              fit.probs.cpu().numpy().reshape(1, -1))
+        tm, _ = melting_curve(temp, fit.probs.cpu().numpy().reshape(1, -1))
         out.append(float(tm[0]))
-    return out
+    return float(np.mean(out))
 
 
 def phase_eam_physics(name, table):
-    """docs/VALIDATION.md config 3, heating leg. Gates: diag 0, T_m
-    finite inside the grid, and the repo's EAM physics oracle
-    (tests/test_cellmc_engine.py::test_eam_cellmc_npt_pressure_closure):
-    the virial pressure <(N kB T + W/3)/V> over the records after the
-    burn-in equals the imposed 1 bar within 0.005 eV/A^3. That test's
-    0.002 is for 500 atoms at 600 K; 256 atoms up to 2200 K fluctuate
-    more, and a sign or factor error in the virial reads 2 N kB T / V,
-    ~0.013, still well outside. T_m
-    is compared with the JAX cellmc leg's 1766.3 K and printed with its
-    spread over classifier initialisations on the same features."""
-    cfg = RunConfig(name="eamval", element="AL", ncells=(4, 4, 4), npress=1,
-                    ntemp=10, press=(1.0,),
-                    temp=tuple(float(t) for t in np.linspace(400.0, 2200.0,
-                                                             10)),
-                    nsmpl=40, mod=20, ncut=15, dpos0=0.1, dvol0=0.01, seed=5)
+    """docs/VALIDATION.md config 3 against the JAX gather engine's chains
+    of it (eam_config3_gather.json, from scripts/eam_config3_reference.py:
+    the same seeds, on the CPU). Gates, with nothing melting in this
+    protocol, so that T_m of one chain and one classifier is mostly the
+    classifier's initial weights (PERF.md):
+    - every chain diag 0 with T_m inside the grid;
+    - sampling, no classifier: per slot, pe/N, V and the virial pressure
+      pooled over the chains within Z_PHYS standard errors of the JAX
+      chains' (batch means of 5 x 5 records per chain on both sides);
+    - T_m, one classifier: the port's classifier, trained from seeds 0-3
+      on each chain's features, gives the same mean T_m on the port's
+      chains as on the JAX chains within Z_PHYS standard errors (from the
+      chain-to-chain spread, pooled over both sides)."""
+    with open(REFERENCE) as f:
+        ref = json.load(f)
+    seeds = ref["chain_seeds"]
+    temp = np.asarray(ref["temp_K"], np.float32)
     t = time.perf_counter()
-    res = melting_pipeline(cfg, setfl=table, engine="cellmc", nbins=48)
+    runs = [melting_pipeline(config3(s), setfl=table, engine="cellmc",
+                             nbins=ref["nbins"]) for s in seeds]
+    for s, res in zip(seeds, runs):
+        check(res.diag == 0 and math.isfinite(float(res.tm[0]))
+              and temp[0] <= float(res.tm[0]) <= temp[-1],
+              f"[eam-physics] chain {s}: diag {res.diag}, T_m {res.tm}")
+    batches = [slot_batches(res, config3(0).ncut, ref["batches_per_chain"],
+                            ref["natoms"]) for res in runs]
+    worst = 0.0
+    for key in ("pe_per_atom_eV", "vol_A3", "pvir_eV_per_A3"):
+        b = np.concatenate([bt[key] for bt in batches])
+        m, se = b.mean(0), b.std(0, ddof=1) / math.sqrt(len(b))
+        rm, rse = np.asarray(ref[key]), np.asarray(ref[key + "_se"])
+        z = (m - rm) / np.sqrt(se ** 2 + rse ** 2)
+        worst = max(worst, float(np.abs(z).max()))
+        log(f"[eam-physics] {key} by slot, port {m.tolist()} (se "
+            f"{se.tolist()}); JAX gather {rm.tolist()}; z "
+            f"{np.round(z, 2).tolist()}")
+    log(f"[eam-physics] sampling: max |z| {worst:.2f} over 3 x "
+        f"{len(temp)} slots, {len(seeds)} chains a side (limit {Z_PHYS})")
+    check(worst < Z_PHYS, f"[eam-physics] sampling differs from the JAX "
+          f"gather chains: max |z| {worst:.2f}")
+    tm_p = np.array([classifier_tm(res.g_slot, temp, CLF_SEEDS)
+                     for res in runs])
+    tm_j = np.array([classifier_tm(c["g_slot"], temp, CLF_SEEDS)
+                     for c in ref["chains"]])
+    spread = math.sqrt((tm_p.var(ddof=1) + tm_j.var(ddof=1)) / 2.0)
+    se = spread * math.sqrt(2.0 / len(seeds))
+    diff = float(tm_p.mean() - tm_j.mean())
     dt = time.perf_counter() - t
-    tm = float(res.tm[0])
-    err = abs(tm / 1766.3 - 1.0)
-    rec = res.records
-    kb, p2e, n = 8.617333262e-5, 1.0 / 1.602176634e6, 256
-    temp = rec.temp[cfg.ncut:].cpu().numpy()
-    pe = rec.pe[cfg.ncut:].cpu().numpy() / n
-    pv = ((n * kb * temp + rec.virial[cfg.ncut:].cpu().numpy() / 3.0)
-          / rec.vol[cfg.ncut:].cpu().numpy())
-    slots = np.asarray(cfg.temp, np.float32)
-    pe_slot = np.array([pe[np.isclose(temp, t)].mean() for t in slots])
-    p_slot = np.array([pv[np.isclose(temp, t)].mean() for t in slots])
-    steps = np.diff(pe_slot)
-    harmonic = 1.5 * kb * float(slots[1] - slots[0])
-    spread = tm_over_classifier_seeds(res, range(8), 48)
-    log(f"[eam-physics] T_m(1 bar)={tm:.1f} K diag={res.diag}; probs "
-        f"{np.round(res.probs[0], 3).tolist()}; |T_m/1766.3 - 1| = "
-        f"{err:.4f} (2% of the JAX cellmc heating leg: "
-        f"{'PASS' if err <= 0.02 else 'MISS'}); {dt:.1f} s on {name}")
-    log(f"[eam-physics] T_m over classifier seeds 0-7 on the same features: "
-        f"{[round(v, 1) for v in spread]} (min {min(spread):.1f}, max "
-        f"{max(spread):.1f} K)")
-    log(f"[eam-physics] pe/N by slot {np.round(pe_slot, 4).tolist()} eV; "
-        f"largest step {steps.max():.4f} eV (harmonic 3/2 kB dT = "
-        f"{harmonic:.4f}); virial pressure by slot "
-        f"{np.round(p_slot, 5).tolist()} eV/A^3 (imposed "
-        f"{p2e * cfg.press[0]:.2e})")
-    check(res.diag == 0 and math.isfinite(tm), "[eam-physics] diag/T_m")
-    check(cfg.temp[0] <= tm <= cfg.temp[-1], "[eam-physics] T_m off grid")
-    # the signature of a virial sign or factor error: 2 N kB T / V
-    p_all = float(pv.mean())
-    sign_err = float((2.0 * n * kb * temp / rec.vol[cfg.ncut:].cpu().numpy())
-                     .mean())
-    log(f"[eam-physics] virial pressure over all slots and records "
-        f"{p_all:.3e} eV/A^3 (limit 0.005; a sign or factor error in W "
-        f"reads ~{sign_err:.3e})")
-    check(abs(p_all - p2e * cfg.press[0]) < 0.005,
-          f"[eam-physics] NPT pressure closure fails: {p_all}")
+    log(f"[eam-physics] T_m, the port's classifier (seeds "
+        f"{list(CLF_SEEDS)}) by chain: on the port's chains "
+        f"{np.round(tm_p, 1).tolist()}, mean {tm_p.mean():.1f} K; on the "
+        f"JAX chains {np.round(tm_j, 1).tolist()}, mean {tm_j.mean():.1f} "
+        f"K; difference {diff:.1f} K, z {diff / se:.2f} (limit {Z_PHYS})")
+    tm_pipe = [round(float(res.tm[0]), 1) for res in runs]
+    tm_jax = [c["tm_K"] for c in ref["chains"]]
+    log(f"[eam-physics] the pipeline's T_m by chain (classifier seed 0): "
+        f"port {tm_pipe}, JAX gather {np.round(tm_jax, 1).tolist()}; chain "
+        f"{seeds[0]}: port {tm_pipe[0]} K against the JAX cellmc leg's "
+        f"1766.3 K (eam_tm_ab.json clong): {abs(tm_pipe[0] / 1766.3 - 1):.4f};"
+        f" {dt:.1f} s on {name}")
+    check(abs(diff) < Z_PHYS * se, f"[eam-physics] T_m on the port's chains "
+          f"differs from T_m on the JAX chains: {diff:.1f} K, se {se:.1f}")
 
 
 def main():

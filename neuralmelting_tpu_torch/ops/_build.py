@@ -1,12 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles each ``csrc/*.cu`` into a shared library of its own with
-a plain C interface, all sources at once (one nvcc process each), and
-loads them with ``ctypes``. The libraries land in
-``build/neuralmelting_tpu_torch/<hash>/`` under the repository root, keyed
-on a hash of all sources and the flags, so an edit rebuilds and an
-unchanged tree reuses the last build. Nothing runs at import time: the
-first CUDA tensor that reaches a kernel wrapper triggers ``load()``.
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. The library
+lands in ``build/neuralmelting_tpu_torch/<hash>/`` under the repository
+root, keyed on a hash of the sources and the flags, so an edit rebuilds
+and an unchanged tree reuses the last build. Nothing runs at import time:
+the first CUDA tensor that reaches a kernel wrapper triggers ``load()``.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` and nvcc's default IEEE
 division, square root and denormals, so each kernel's per-pair f32
@@ -21,14 +21,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
               / "neuralmelting_tpu_torch")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+         "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+LIBNAME = "libnm_cellmc.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -80,59 +80,54 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def _libpath(src: Path) -> Path:
-    return build_dir() / f"libnm_{src.stem}.so"
-
-
-def build() -> list:
-    """Compile every library this source hash lacks, all nvcc processes
-    started together; return the library paths."""
-    outs = [_libpath(p) for p in sorted(CSRC.glob("*.cu"))]
-    todo = []
-    for src, out in zip(sorted(CSRC.glob("*.cu")), outs):
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        todo.append((cmd, proc, tmp, out))
-    failed = []
-    for cmd, proc, tmp, out in todo:
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-        if proc.returncode != 0:
-            failed.append(f"{out.name}: nvcc failed ({proc.returncode}):\n"
-                          f"{log}")
-        else:
-            os.replace(tmp, out)
+def _run(cmds):
+    """Run the commands at once; return their joined output, or raise
+    with it if any failed."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    logs, failed = [], False
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        failed |= proc.returncode != 0
     if failed:
-        raise RuntimeError("\n".join(failed))
-    return outs
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
+    return "".join(logs)
+
+
+def build() -> Path:
+    """Compile the library if this source hash has none yet; return it."""
+    out = build_dir() / LIBNAME
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{p.stem}.{os.getpid()}.o") for p in srcs]
+    log = _run([[nvcc(), *FLAGS, "-c", "-o", str(o), str(p)]
+                for p, o in zip(srcs, objs)])
+    tmp = out.with_name(f"{LIBNAME}.{os.getpid()}.tmp")
+    log += _run([[nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    (out.parent / "build.log").write_text(log)
+    for o in objs:
+        o.unlink()
+    os.replace(tmp, out)
+    return out
 
 
 def build_log() -> str:
-    return "".join(p.read_text() for p in sorted(build_dir().glob("*.log")))
+    p = build_dir() / "build.log"
+    return p.read_text() if p.exists() else ""
 
 
 def load():
-    """The kernels' C entry points (one namespace over all libraries),
-    built on first call."""
+    """The kernel library, built on first call."""
     global _lib
     if _lib is None:
-        fns = {}
-        for path in build():
-            lib = ctypes.CDLL(str(path))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name, None)
-                if fn is None:
-                    continue
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-                fns[name] = fn
-        missing = sorted(set(_SIGNATURES) - set(fns))
-        if missing:
-            raise RuntimeError(f"kernel entry points not built: {missing}")
-        _lib = types.SimpleNamespace(**fns)
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
     return _lib

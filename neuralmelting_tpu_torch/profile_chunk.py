@@ -32,16 +32,19 @@ from neuralmelting_tpu_torch.models import eam_gen
 
 
 def configs():
+    """The full-width configurations of this module and chip_smoke.py:
+    LJ at the north star (bench.py), EAM at scripts/eambench.py's, each
+    with a short schedule of 4 records x 8 sweeps."""
     lin = lambda a, b, n: tuple(float(v) for v in np.linspace(a, b, n))
     return {
-        "lj": RunConfig(name="prof", element="LJ", ncells=(16, 8, 8),
+        "lj": RunConfig(name="smoke", element="LJ", ncells=(16, 8, 8),
                         npress=32, ntemp=32, press=lin(1.0, 8.0, 32),
-                        temp=lin(0.7, 1.3, 32), nsmpl=4, mod=8,
+                        temp=lin(0.7, 1.3, 32), nsmpl=4, mod=8, ncut=1,
                         seed=1234, dpos0=0.11, dvol0=0.002),
-        "eam": RunConfig(name="prof", element="AL", ncells=(16, 8, 8),
+        "eam": RunConfig(name="eamsmoke", element="AL", ncells=(16, 8, 8),
                          npress=16, ntemp=16, press=lin(1.0, 5000.0, 16),
                          temp=lin(600.0, 1400.0, 16), nsmpl=4, mod=8,
-                         seed=11, dpos0=0.15, dvol0=0.002),
+                         ncut=1, seed=11, dpos0=0.15, dvol0=0.002),
     }
 
 
