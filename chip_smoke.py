@@ -37,6 +37,25 @@ Phases, in order (any failed check exits non-zero):
                    the virial pressure, and T_m of one classifier
                    trained on either side's features, each within 4
                    standard errors; diag 0 and T_m inside the grid.
+  Serial path (kernel B5 lj_delta) and the probe (kernel P1):
+  10. serial-small — B5 against its plain version, dE and dW, at the JAX
+                   kernel test's shapes (R=1, N=256, M=4; R=2, N=108, M=2);
+  11. serial-full  — the same at the serial engine's own launch (R=1,
+                   N=256, M=1) and batched at BASELINE config 2's shape
+                   (R=64 replicas of 4096 perturbed fcc atoms, M=32, rc
+                   2.5), with CUDA-event times and the bound;
+  12. golden      — BASELINE config 1 (tests/make_golden.py) through the
+                   port's serial engine on the default device (the card),
+                   B5's counter zeroed before and read after: it must equal
+                   the position attempts; records and frames held to the
+                   committed tests/golden/config1.* (the JAX package's run)
+                   and every decision to the port's own CPU run of it;
+                   seconds per sweep and attempted moves/s;
+  13. golden-hmc  — tests/test_golden.py's HMC case (32 atoms, ppos 0.7,
+                   pvol 0.05, seed 9) on the card against the port's CPU
+                   run: acceptance ratios equal, positions within 1e-2;
+  14. probe       — every P1 variant against its plain version, then the
+                   per-variant timing (python -m neuralmelting_tpu_torch.probe).
 
 The last lines are the card's name and power limit (nvidia-smi), the
 kernels' JSON line (each kernel's launches on its path's main run, error
@@ -62,11 +81,15 @@ import time
 import numpy as np
 import torch
 
+from neuralmelting_tpu_torch import golden as GOLD
+from neuralmelting_tpu_torch import probe as P1
 from neuralmelting_tpu_torch import runner
 from neuralmelting_tpu_torch.config import RunConfig
+from neuralmelting_tpu_torch.io import thermo, traj
 from neuralmelting_tpu_torch.models import eam as eam_mod
 from neuralmelting_tpu_torch.models import eam_cheb, eam_gen
 from neuralmelting_tpu_torch.models.lattice import make_supercell
+from neuralmelting_tpu_torch.models.lj import LJCut
 from neuralmelting_tpu_torch.neural.melt import melting_curve
 from neuralmelting_tpu_torch.neural.models import PhaseCNN, init_params
 from neuralmelting_tpu_torch.neural.scalers import get_scaler
@@ -76,6 +99,8 @@ from neuralmelting_tpu_torch.ops import _build
 from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
+from neuralmelting_tpu_torch.ops import lj_delta as LD
+from neuralmelting_tpu_torch.ops.energy import min_image
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.profile_chunk import configs
 from neuralmelting_tpu_torch.sampler import cellmc as SC
@@ -97,10 +122,18 @@ KERNELS = {
         name="cellmc_eam_total (B4)", route="cuda",
         source="neuralmelting_tpu_torch/csrc/cellmc_eam_total.cu",
         replaces="neuralmelting_tpu/ops/pallas/cellmc_eam.py:351"),
+    "delta": dict(name="lj_delta (B5)", route="cuda",
+                  source="neuralmelting_tpu_torch/csrc/lj_delta.cu",
+                  replaces="neuralmelting_tpu/ops/pallas/lj_kernel.py:64"),
+    "probe": dict(name="vpu_probe pair_div (P1)", route="cuda",
+                  source="neuralmelting_tpu_torch/csrc/vpu_probe.cu",
+                  replaces="scripts/vpu_probe.py:39"),
 }
+HERE = os.path.dirname(os.path.abspath(__file__))
 # the JAX gather engine's config-3 chains (scripts/eam_config3_reference.py)
-REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "eam_config3_gather.json")
+REFERENCE = os.path.join(HERE, "eam_config3_gather.json")
+# the JAX serial engine's config-1 run (tests/make_golden.py)
+GOLDEN = os.path.join(HERE, "tests", "golden")
 Z_PHYS = 4.0            # standard errors allowed between port and JAX
 CLF_SEEDS = range(4)    # classifier initial weights per chain
 KB_EV = 8.617333262e-5
@@ -121,6 +154,20 @@ OPS_LJ_SWEEP = 30
 # (twice, old and new, in the sweep); a Clenshaw term is 3 operations
 OPS_EAM_CAND = 12
 OPS_EAM_SWEEP_CAND = 20
+# B5, per atom and side: the minimum image (3 x sub, divide, rint, mul,
+# sub), r^2 (5) and the cutoff compare; inside rc also max, divide, sr6
+# (2), sr12, e (2), w (3) and the two accumulates
+OPS_B5_PAIR = 21
+OPS_B5_IN = 12
+# B5 sums of N terms in another order than the plain version: |k - p| <=
+# B5_RTOL * (sum of the terms' magnitudes)
+B5_RTOL = 2e-6
+# P1 against its plain version, relative to max |plain|: exact for the
+# variants whose operations the plain version repeats, the approximate
+# reciprocal (square root) for the rest, bf16 rounding for the bf16 ones
+PROBE_TOL = {"recip": 1e-4, "recip0": 1e-4, "rsqrt": 1e-4,
+             "pair_recip": 1e-4, "fma_peak_bf16": 2.0 ** -5,
+             "pair_div_bf16": 2.0 ** -5}
 
 
 class CheckFailed(RuntimeError):
@@ -754,6 +801,282 @@ def phase_eam_physics(name, table):
           f"differs from T_m on the JAX chains: {diff:.1f} K, se {se:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# serial path (B5) and the probe (P1)
+# ---------------------------------------------------------------------------
+
+def b5_case(r, ncells, m, seed, lattice=1.6, jitter=0.04, step=0.15):
+    """R jittered fcc replicas, M distinct movers each, displaced by up to
+    +-step per axis: (pos, box, ids, old_r, new_r) on the card."""
+    pos, box = make_supercell("fcc", lattice, ncells)
+    n = pos.shape[0]
+    g = np.random.default_rng(seed)
+    pos = np.stack([(pos + jitter * g.standard_normal(pos.shape)) % box
+                    for _ in range(r)]).astype(np.float32)
+    ids = np.stack([g.choice(n, m, replace=False) for _ in range(r)])
+    old = np.take_along_axis(pos, ids[..., None], axis=1)
+    new = (old + g.uniform(-step, step, old.shape)).astype(np.float32)
+    boxes = np.repeat(np.asarray(box, np.float32)[None], r, 0)
+    return tuple(torch.as_tensor(x, device=DEV) for x in
+                 (pos, boxes, ids.astype(np.int32), old, new))
+
+
+def b5_terms(pot, case):
+    """Per mover, the summed magnitudes of its e and w terms (both sides),
+    and the number of (mover, atom, side) terms inside rc."""
+    pos, box, ids, old, new = case
+    _, rc2, _, _ = pot.f32_consts()
+    col = torch.arange(pos.shape[1], device=DEV)
+    notself = col[None, None, :] != ids[:, :, None]
+    se = sw = 0.0
+    n_in = 0
+    for r in (old, new):
+        d = min_image(r[:, :, None, :] - pos[:, None, :, :],
+                      box[:, None, None, :])
+        r2 = (d * d).sum(-1)
+        ok = notself & (r2 < rc2)
+        e, w = pot.pair_e_w(torch.clamp(r2, min=LD.R2_FLOOR))
+        se = se + torch.where(ok, e.abs(), 0.0).sum(-1)
+        sw = sw + torch.where(ok, w.abs(), 0.0).sum(-1)
+        n_in += int(ok.sum())
+    return se, sw, n_in
+
+
+def compare_b5(pot, case, tag):
+    pos, _, ids, _, _ = case
+    (r, n, _), m = pos.shape, ids.shape[1]
+    dek, dwk = LD.delta_moves(pot, *case)
+    dep, dwp = LD.delta_moves_plain(pot, *case)
+    torch.cuda.synchronize()
+    se, sw, n_in = b5_terms(pot, case)
+    for nm, k, p, mag in (("dE", dek, dep, se), ("dW", dwk, dwp, sw)):
+        err = (k - p).abs()
+        worst = float((err / mag.clamp(min=1e-30)).max())
+        log(f"[{tag}] B5 R={r} N={n} M={m} {nm}: max |k - p| "
+            f"{float(err.max()):.3e}, max |k - p| / sum|terms| {worst:.3e} "
+            f"(limit {B5_RTOL:g}); |{nm}| up to {float(p.abs().max()):.3e}")
+        check(bool((err <= B5_RTOL * mag + 1e-6).all()),
+              f"[{tag}] B5 {nm} disagrees with its plain version")
+        check(bool(torch.isfinite(k).all()), f"[{tag}] B5 {nm} not finite")
+    ERR["delta"] = max(ERR["delta"], float((dek - dep).abs().max()))
+    return n_in
+
+
+def b5_bound(r, n, m, n_in):
+    nbytes = 4 * (r * n * 3 + r * 3 + r * m + 2 * r * m * 3 + 2 * r * m)
+    return bound(nbytes, 2 * r * m * (n - 1) * OPS_B5_PAIR + n_in * OPS_B5_IN)
+
+
+def phase_serial_small():
+    pot = LJCut.create()
+    for r, ncells, m, seed in ((1, 4, 4, 0), (2, 3, 2, 1)):
+        compare_b5(pot, b5_case(r, ncells, m, seed), "serial-small")
+
+
+def phase_serial_full(name):
+    pot = LJCut.create()
+    lat = 2.0 ** (2.0 / 3.0)
+    # the serial engine's own launch: one mover of config 1's crystal
+    case = b5_case(1, 4, 1, 2, lattice=lat, jitter=0.03, step=0.1)
+    n_in = compare_b5(pot, case, "serial-full")
+    # a launch this small takes less time on the card than the host needs
+    # to issue it: the kernel's own time comes from torch.profiler, the
+    # CUDA-event time per call back to back is the issue rate
+    ms1 = P1.device_ms(lambda: LD.delta_moves(pot, *case), 200, "delta_")
+    ev1 = cuda_ms(lambda: LD.delta_moves(pot, *case), 200)
+    pms1 = cuda_ms(lambda: LD.delta_moves_plain(pot, *case), 50)
+    TIMES["delta"] = (ms1, pms1)
+    BOUND["delta"] = b5_bound(1, 256, 1, n_in)
+    # batched: BASELINE config 2's 8x8 grid of 4096-atom LJ, 32 movers each
+    big = b5_case(64, (16, 8, 8), 32, 3, lattice=lat, jitter=0.03, step=0.1)
+    n_in_big = compare_b5(pot, big, "serial-full")
+    ms = P1.device_ms(lambda: LD.delta_moves(pot, *big), 20, "delta_")
+    ev = cuda_ms(lambda: LD.delta_moves(pot, *big), 20)
+    pms = cuda_ms(lambda: LD.delta_moves_plain(pot, *big), 3)
+    bms, by = b5_bound(64, 4096, 32, n_in_big)
+    log(f"[serial-full] B5 R=1 N=256 M=1: kernel {ms1:.4f} ms on the "
+        f"device ({ev1:.4f} ms per call as issued), plain {pms1:.4f} ms, "
+        f"bound {BOUND['delta'][0]:.6f} ms ({BOUND['delta'][1]}); R=64 "
+        f"N=4096 M=32: kernel {ms:.4f} ms on the device ({ev:.4f} as "
+        f"issued), plain {pms:.4f} ms, bound {bms:.6f} ms ({by}), "
+        f"{n_in_big} terms inside rc (after warm-up) on {name}")
+
+
+def golden_records(recs, frames, nrec, tag):
+    """Hold the first nrec records and frames to tests/golden/config1.*."""
+    _, want = thermo.read(os.path.join(GOLDEN, "config1.thrm"))
+    gpos, gbox, gsweep = traj.read(os.path.join(GOLDEN, "config1.traj"))
+    got = {c: getattr(recs, c)[:nrec].cpu().numpy() for c in thermo.COLUMNS}
+    for c in ("sweep", "acc_pos", "acc_vol", "dpos", "dvol"):
+        w = want[c][:nrec].astype(got[c].dtype)
+        check(np.array_equal(got[c], w),
+              f"[{tag}] {c} differs from the golden file: {got[c]} vs {w}")
+    worst = {}
+    for c, rtol, atol in (("pe", 2e-4, 5e-3), ("virial", 2e-4, 5e-3),
+                          ("vol", 1e-5, 0.0)):
+        d = np.abs(got[c].astype(np.float64) - want[c][:nrec])
+        worst[c] = float((d / np.abs(want[c][:nrec])).max())
+        check(bool((d <= atol + rtol * np.abs(want[c][:nrec])).all()),
+              f"[{tag}] {c} differs from the golden file: {got[c]} vs "
+              f"{want[c][:nrec]}")
+    dx = float(np.abs(frames[0][:nrec].cpu().numpy() - gpos[:nrec]).max())
+    db = float(np.abs(frames[1][:nrec].cpu().numpy() - gbox[:nrec]).max())
+    check(max(dx, db) <= 5e-4, f"[{tag}] frames differ: |dx| {dx}, |dbox| "
+          f"{db}")
+    log(f"[{tag}] records 1-{nrec}: sweep, acc_pos, acc_vol, dpos, dvol "
+        f"equal to tests/golden/config1.thrm; max rel err pe "
+        f"{worst['pe']:.2e}, virial {worst['virial']:.2e} (limit 2e-4 + "
+        f"5e-3 abs), vol {worst['vol']:.2e} (limit 1e-5); frames |dx| "
+        f"{dx:.2e}, |dbox| {db:.2e} (limit 5e-4)")
+
+
+def first_divergence(tr_a, tr_b):
+    """(sweep, attempt, margin a, margin b, move type) of the first decision
+    that differs between two traced chains of the same key, or None."""
+    for s, ((ta, aa, ma), (tb, ab, mb)) in enumerate(zip(tr_a, tr_b)):
+        check(torch.equal(ta, tb), f"move types differ in sweep {s}")
+        diff = torch.nonzero(aa.cpu() != ab.cpu()).reshape(-1)
+        if len(diff):
+            a = int(diff[0])
+            return s, a, float(ma[a]), float(mb[a]), int(ta[a])
+    return None
+
+
+def phase_golden(name):
+    n = 256
+    LD.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, recs, frames = GOLD.run_chain()          # the default device
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = LD.LAUNCHES["delta"]
+    KERNELS["delta"]["launches"] = launches
+    check(recs.pe.device.type == "cuda", "[golden] did not run on the card")
+    # every decision against the port's CPU run (tier-1 holds that run to
+    # the JAX chain); a traced chain computes each attempt's margin
+    tr_k, tr_c = [], []
+    _, recs_k, frames_k = GOLD.run_chain(DEV, trace=tr_k)
+    GOLD.run_chain("cpu", trace=tr_c)
+    nsw = len(tr_k)
+    npos = sum(int((mt == 0).sum()) for mt, _, _ in tr_k)
+    margin = min(float(m.abs().min()) for _, _, m in tr_k)
+    log(f"[golden] config 1: {nsw} sweeps of {n} attempts in {secs:.3f} s, "
+        f"{secs / nsw * 1e3:.2f} ms per sweep, {nsw * n / secs:.4e} "
+        f"attempted moves/s on {name}; B5 launches {launches}, position "
+        f"attempts {npos}; smallest decision margin |ln u - ln w| "
+        f"{margin:.3e}")
+    check(launches == npos, f"[golden] B5 launched {launches} times for "
+          f"{npos} position attempts")
+    check(torch.equal(recs.acc_pos, recs_k.acc_pos)
+          and torch.equal(recs.acc_vol, recs_k.acc_vol),
+          "[golden] the traced run made other decisions")
+    nrec = 4
+    div = first_divergence(tr_k, tr_c)
+    if div is None:
+        log("[golden] every decision equals the port's CPU run")
+    else:
+        s, a, mk, mc, mt = div
+        log(f"[golden] first decision that differs from the port's CPU run: "
+            f"sweep {s}, attempt {a} (move type {mt}), margin |ln u + "
+            f"beta dE| {abs(mk):.3e} on the card, {abs(mc):.3e} on the CPU")
+        check(abs(mk) < 1e-4, f"[golden] decision differs at margin "
+              f"{abs(mk):.3e} (not a rounding tie)")
+        nrec = s // 4                   # config 1: 4 sweeps a record
+        log(f"[golden] a rounding tie between two f32 summation orders: "
+            f"holding the {nrec} records before sweep {s}")
+    if nrec:
+        golden_records(recs, frames, nrec, "golden")
+    profile_sweep(name)
+
+
+def profile_sweep(name):
+    """One config-1 sweep on the card under torch.profiler, after one
+    warm-up sweep: wall, device busy and idle share, kernels per attempt."""
+    from torch.profiler import ProfilerActivity, profile
+    pot, state, sweep = GOLD.setup_chain(DEV)
+    sweep(pot, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sweep(pot, state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = kernels = b5 = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = (ev.self_cuda_time_total if t is None else t) / 1e3
+        if t <= 0:
+            continue
+        busy += t
+        kernels += ev.count
+        if "delta_" in ev.key:
+            b5 += t
+    n = state.pos.shape[0]
+    check(busy > 0, "[golden] the profiler saw no device time")
+    log(f"[golden] one sweep under torch.profiler: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms (B5 {b5:.3f} ms), idle share "
+        f"{1.0 - busy / wall:.4f}, {kernels / n:.1f} device operations per "
+        f"attempt on {name}")
+
+
+def phase_golden_hmc(name):
+    kw = dict(ncells=2, seed=9, temp=0.8, press=1.0, dpos0=0.1,
+              dvol_frac0=0.01, dt0=0.005, ppos=0.7, pvol=0.05, nstps=4,
+              mass=1.0, mod=1, nrecords=2)
+    tr_k = []
+    sk, rk, _ = GOLD.run_chain(DEV, trace=tr_k, **kw)
+    sc, rc, _ = GOLD.run_chain("cpu", **kw)
+    nh = sum(int((mt == 2).sum()) for mt, _, _ in tr_k)
+    dx = float((sk.pos.cpu() - sc.pos).abs().max())
+    log(f"[golden-hmc] 32 atoms, 2 sweeps, {nh} HMC trials: acc_pos "
+        f"{rk.acc_pos.tolist()} / {rc.acc_pos.tolist()}, acc_vol "
+        f"{rk.acc_vol.tolist()} / {rc.acc_vol.tolist()}, acc_hmc "
+        f"{rk.acc_hmc.tolist()} / {rc.acc_hmc.tolist()} (card / CPU); max "
+        f"|dx| {dx:.3e} (limit 1e-2) on {name}")
+    check(nh > 0, "[golden-hmc] no HMC trial")
+    for c in ("acc_pos", "acc_vol", "acc_hmc"):
+        check(torch.equal(getattr(rk, c).cpu(), getattr(rc, c)),
+              f"[golden-hmc] {c} differs between the card and the CPU")
+    check(dx <= 1e-2, f"[golden-hmc] positions differ by {dx}")
+
+
+def phase_probe(name):
+    a, b = P1.inputs(DEV)
+    errs = {}
+    for v in P1.VARIANTS:
+        dt = P1.dtype_of(v)
+        av, bv = a.to(dt), b.to(dt)
+        k, p = P1.probe(v, av, bv), P1.probe_plain(v, av, bv)
+        torch.cuda.synchronize()
+        errs[v] = float((k - p).abs().max())
+        rel = errs[v] / float(p.abs().max())
+        check(bool(torch.isfinite(k).all()) and rel <= PROBE_TOL.get(v, 1e-6),
+              f"[probe] {v}: rel err {rel:.3e} against the plain version")
+    ERR["probe"] = errs["pair_div"]
+    log("[probe] max |kernel - plain| by variant: "
+        + ", ".join(f"{v} {e:.2e}" for v, e in errs.items())
+        + " (limit, relative to max |plain|: 1e-6; 1e-4 for rcp.approx and "
+        "rsqrtf; 2^-5 for bf16)")
+    plain_ms = cuda_ms(lambda: P1.probe_plain("pair_div", a, b), 2)
+    P1.reset_launches()
+    res = P1.measure(DEV)
+    KERNELS["probe"]["launches"] = P1.LAUNCHES["probe"]
+    TIMES["probe"] = (res["pair_div"]["ms"], plain_ms)
+    pairs = P1.ROWS * P1.LANES * P1.REPS
+    BOUND["probe"] = bound(4 * 3 * P1.ROWS * P1.LANES,
+                           P1.OPS["pair_div"] * pairs)
+    for v, r in res.items():
+        log(f"[probe] {v:14s} {r['ms']:.4f} ms per launch on the device "
+            f"({r['event_ms']:.4f} ms as issued, {r['launches']} launches), "
+            f"{r['ns_per_pair']:.5f} ns per pair, "
+            f"{r['ops_per_pair']} f32 ops per pair, "
+            f"{100 * r['share_f32_peak']:.2f}% of 67 TFLOP/s on {name}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -763,14 +1086,20 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     table = eam_table()
-    for ph, fn in (("build", phase_build), ("small", phase_small),
-                   ("full", lambda: phase_full(name)),
-                   ("main", lambda: phase_main(name)),
-                   ("physics", lambda: phase_physics(name)),
-                   ("eam-small", lambda: phase_eam_small(table)),
-                   ("eam-full", lambda: phase_eam_full(name, table)),
-                   ("eam-main", lambda: phase_eam_main(name, table)),
-                   ("eam-physics", lambda: phase_eam_physics(name, table))):
+    phases = (("build", phase_build), ("small", phase_small),
+              ("full", lambda: phase_full(name)),
+              ("main", lambda: phase_main(name)),
+              ("physics", lambda: phase_physics(name)),
+              ("eam-small", lambda: phase_eam_small(table)),
+              ("eam-full", lambda: phase_eam_full(name, table)),
+              ("eam-main", lambda: phase_eam_main(name, table)),
+              ("eam-physics", lambda: phase_eam_physics(name, table)),
+              ("serial-small", phase_serial_small),
+              ("serial-full", lambda: phase_serial_full(name)),
+              ("golden", lambda: phase_golden(name)),
+              ("golden-hmc", lambda: phase_golden_hmc(name)),
+              ("probe", lambda: phase_probe(name)))
+    for ph, fn in phases:
         t = time.perf_counter()
         fn()
         log(f"[{ph}] done in {time.perf_counter() - t:.1f} s")
@@ -782,8 +1111,9 @@ def main():
     for k, meta in KERNELS.items():
         ms, pms = TIMES[k]
         bms, by = BOUND[k]
-        # no single PyTorch call computes a cell-list pair sum or a
-        # Metropolis sweep: there is no library yardstick
+        # no single PyTorch call computes a cell-list pair sum, a
+        # Metropolis sweep, a brute-force dE sum or the probe's loop: there
+        # is no library yardstick
         kern.append(dict(meta, max_abs_err=ERR[k], ms=ms, plain_ms=pms,
                          bound_ms=bms, bound_by=by, library_ms=None))
     print(name)

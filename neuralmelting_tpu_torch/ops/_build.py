@@ -30,7 +30,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIBNAME = "libnm_cellmc.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, y, z, params, pot3, scale, out, R, nx, ny, nz, K, stream
     "nm_cellmc_total": [_P] * 7 + [_I] * 5 + [_P],
@@ -48,6 +48,11 @@ _SIGNATURES = {
     "nm_eam_sweep": [_P] * 12 + [_I] * 10 + [_P],
     # nx, ny, nz, K -> dynamic shared memory bytes of the EAM sweep
     "nm_eam_sweep_smem": [_I] * 4,
+    # pos, box, ids, old_r, new_r, out, R, N, M, sig2, rc2, 4 eps,
+    # 24 eps, stream
+    "nm_lj_delta": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
+    # variant, a, b, out, n, sig2, rc2, stream
+    "nm_vpu_probe": [_I] + [_P] * 3 + [_I] + [_F] * 2 + [_P],
 }
 
 _lib = None

@@ -43,7 +43,8 @@ from neuralmelting_tpu_torch.sampler.state import ensemble_init
 
 _LATER = {
     "gather": "ROADMAP A13 (reference-exact engines)",
-    "serial": "ROADMAP A13 (reference-exact engines)",
+    "serial": "the JAX runner has none either (ROADMAP A13); one serial "
+              "chain runs through sampler/serial.py, see golden.py",
     "dense": "ROADMAP A14 (the dense/MXU engine is not ported)",
 }
 

@@ -1,12 +1,21 @@
-"""Thermo records (counterpart of ``ThermoRecord`` / ``make_record`` in
-``neuralmelting_tpu.sampler.driver``), batched over replicas."""
+"""Thermo records and the record-block driver (counterpart of
+``neuralmelting_tpu.sampler.driver``).
+
+``ThermoRecord`` / ``make_record`` serve an ensemble (fields (R,)) and one
+serial chain (0-dim fields) alike. ``make_run_fn`` is the serial chain's
+driver: record blocks of ``mod`` sweeps, a record, step-size adaptation
+and a trajectory frame, as the JAX ``lax.scan`` over blocks, here a host
+loop that reads nothing back from the device.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
+from neuralmelting_tpu_torch.sampler.adapt import adapt_step_sizes
 from neuralmelting_tpu_torch.sampler.state import box_volume
 
 
@@ -59,3 +68,30 @@ def stack_records(recs) -> ThermoRecord:
     return ThermoRecord(**{
         f.name: torch.stack([getattr(r, f.name) for r in recs])
         for f in dataclasses.fields(ThermoRecord)})
+
+
+def make_run_fn(sweep_fn: Callable, kb: float, mod: int, nrecords: int,
+                targets=(0.5, 0.5, 0.5), factor: float = 1.0625,
+                write_traj: bool = True):
+    """Build ``run(pot, state) -> (state, records, frames)``.
+
+    ``sweep_fn(pot, state)`` is one sweep (``sampler.serial``). records:
+    a ThermoRecord with leading axis nrecords; frames: (positions, boxes)
+    with leading axis nrecords, taken after each block's adaptation, or
+    None.
+    """
+
+    def run(pot, state):
+        recs, pos, box = [], [], []
+        for _ in range(nrecords):
+            for _ in range(mod):
+                state = sweep_fn(pot, state)
+            recs.append(make_record(state, kb))
+            state = adapt_step_sizes(state, targets=targets, factor=factor)
+            if write_traj:
+                pos.append(state.pos.clone())
+                box.append(state.box.clone())
+        frames = (torch.stack(pos), torch.stack(box)) if write_traj else None
+        return state, stack_records(recs), frames
+
+    return run

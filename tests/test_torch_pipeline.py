@@ -1,9 +1,10 @@
 """The port's slice as a whole.
 
 (a) In a fresh interpreter: import every module of neuralmelting_tpu_torch,
-    run its CPU pipeline at a tiny LJ config and one EAM chunk; jax, flax,
-    optax and every module of the JAX package neuralmelting_tpu must stay
-    out of sys.modules.
+    run its CPU pipeline at a tiny LJ config and one EAM chunk, a short
+    serial chain with its golden-file writers and a P1 plain variant;
+    jax, flax, optax and every module of the JAX package
+    neuralmelting_tpu must stay out of sys.modules.
 (b) The port's melting_pipeline(engine="cellmc", device="cpu") against
     the JAX package's melting_pipeline(engine="gather") at the same tiny
     config (256 atoms, P*=1, 6 temperatures 0.55-1.45, 10 records of 8
@@ -58,6 +59,12 @@ al = RunConfig(name="nojax", element="AL", ncells=(4, 4, 4), npress=1,
 setup = runner.setup_run(al, setfl=table, device="cpu")
 setup, recs, frames, hist, xacc, diag = runner.run_sampling(setup)
 assert diag == 0 and setup.style == "eam", diag
+from neuralmelting_tpu_torch import golden, probe
+state, recs, frames = golden.run_chain("cpu", ncells=2, mod=1, nrecords=1)
+golden.write_files(tempfile.mkdtemp(), recs, frames)
+assert int(state.ntp) == 0 and recs.sweep.tolist() == [1], recs
+a, b = probe.inputs("cpu")
+assert probe.probe_plain("pair_div", a, b).isfinite().all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "neuralmelting_tpu"))
