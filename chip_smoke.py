@@ -4,7 +4,8 @@
 
 Phases, in order (any failed check exits non-zero):
   1. build       — compile the CUDA kernels from neuralmelting_tpu_torch/csrc
-                   (one nvcc per source, all at once, then one link);
+                   (one nvcc per source, all at once, then one link) and
+                   print each kernel's ptxas registers and spills;
   LJ path (kernels B1 total, B2 sweep):
   2. small       — B1 and B2 against their plain PyTorch versions at the
                    rc=1.5 test geometry, R=3 and R=130 (two 128-replica
@@ -21,12 +22,17 @@ Phases, in order (any failed check exits non-zero):
   EAM path (kernels B3 sweep, B4 total; the rc=3.8 synthetic Al table,
   written to a temp directory at run time):
   6. eam-small   — B4 and B3 against their plain versions at 4x4x4 fcc Al
-                   (cells (3,3,3), K=16), R=3 and R=130 (rt=128, two tiles):
+                   (cells (3,3,3), K=16), R=3 and R=130 (rt=128, two tiles),
+                   and at 16x8x8 fcc Al with K=40, R=3 (B3 with fewer warps
+                   than cells a colour, two rounds a colour step):
                    identical decisions, the density slab, the pe identity
                    against fresh B4 totals, every atom inside its cell;
   7. eam-full    — the same at scripts/eambench.py's configuration (AL,
                    16x8x8 fcc = 4096 atoms, 16x16 grid, R=256, seed 11);
                    CUDA-event times of each kernel beside its plain version;
+                   then B3 again at the slot capacity K of the main path's
+                   chunks (after one warm-up chunk): held to its plain
+                   version and timed on the same inputs;
   8. eam-main    — melting_pipeline(element="AL", engine="cellmc") on the
                    default device at that configuration with a short
                    schedule; B3/B4 counters zeroed before and read after;
@@ -62,7 +68,8 @@ kernels' JSON line (each kernel's launches on its path's main run, error
 against its plain version, CUDA-event ms of kernel and plain version at
 full width, and the least time the card could take for that work,
 bound_ms, from its bytes over 3.35 TB/s or its f32 operations over
-67 TFLOP/s, whichever is larger), and {"ok": true, "device": {...}}.
+67 TFLOP/s, whichever is larger; B3's entry also carries chunk_kcap and
+chunk_ms, its time at the chunks' K), and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it
 exits non-zero and prints no result. Imports nothing of jax or of the JAX
 package.
@@ -73,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -353,10 +361,27 @@ def phase_build():
         f"nvcc: {ver[-1]}; torch "
         f"{torch.__version__} (CUDA {torch.version.cuda}); "
         f"python {sys.version.split()[0]}")
+    # ptxas -v: per kernel its registers, then its stack and spills
+    kernel = spill = ""
     for line in _build.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line or \
-                "spill" in line:
-            log(f"[build] {line.strip()}")
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}; "
+                f"{spill}")
+
+
+def kernel_name(mangled):
+    """'cellmc_sweep.cu sweep_kernel' from a mangled kernel symbol (a
+    kernel in an unnamed namespace of csrc/<file>.cu)."""
+    m = re.search(r"_\d+_([a-z]\w*?)_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(2))
+    return f"{m.group(1)}.cu {mangled[m.end():m.end() + n]}"
 
 
 def phase_small():
@@ -478,14 +503,16 @@ def eam_table():
     return path
 
 
-def eam_small_case(cheb, r, seed=0):
-    """Jittered 256-atom fcc Al replicas, cells (3,3,3), K=16."""
-    pos, box = make_supercell("fcc", 4.05, (4, 4, 4))
+def eam_small_case(cheb, r, seed=0, cells=(4, 4, 4), kcap=16):
+    """Jittered fcc Al replicas, stride-3 cells (3,3,3) at the default 256
+    atoms, slot capacity ``kcap``."""
+    pos, box = make_supercell("fcc", 4.05, cells)
     g = np.random.default_rng(seed)
     pos = np.stack([(pos + 0.08 * g.standard_normal(pos.shape)) % box
                     for _ in range(r)]).astype(np.float32)
     boxes = np.repeat(np.asarray(box, np.float32)[None], r, 0)
-    geom = CG.make_geom(box, cheb.rc_host, 256, nsub=1, stride=3, kcap=16)
+    geom = CG.make_geom(box, cheb.rc_host, len(pos), nsub=1, stride=3,
+                        kcap=kcap)
     x, y, z, ids, count, over = CG.bin_initial(
         geom, torch.as_tensor(pos, device=DEV),
         torch.as_tensor(boxes, device=DEV),
@@ -579,15 +606,33 @@ def phase_eam_small(table):
     scal, series, nser = CE.eam_pack(cheb, DEV)
     log(f"[eam-small] Chebyshev series lengths {nser}, fit errors "
         f"{cheb.fit_err}")
-    for r in (3, 130):
-        geom, slabs, ids, count, params = eam_small_case(cheb, r)
+    # R=3 and R=130 (two threefry tiles) at 256 atoms; then eambench's
+    # cells (15,6,6) at K=40, where B3's CTA holds fewer warps than the
+    # colour's 20 cells and a colour step takes a second round
+    for r, cells, kcap in ((3, (4, 4, 4), 16), (130, (4, 4, 4), 16),
+                           (3, (16, 8, 8), 40)):
+        geom, slabs, ids, count, params = eam_small_case(cheb, r,
+                                                         cells=cells,
+                                                         kcap=kcap)
         rt = SC.pick_rt(r)
+        warps = eam_sweep_warps(geom)
         log(f"[eam-small] geom ncell={geom.ncell} K={geom.kcap} R={r} "
-            f"rt={rt} tiles={-(-r // rt)}")
+            f"rt={rt} tiles={-(-r // rt)}; B3 takes {warps} warps for "
+            f"{geom.cw} cells a colour")
+        if kcap == 40:
+            check(warps < geom.cw, f"[eam-small] K=40 takes {warps} warps "
+                  f"for {geom.cw} cells: no second round")
         compare_eam_total(geom, slabs, ids, params, scal, series,
                           "eam-small")
         compare_eam_sweep(geom, slabs, ids, count, params, scal, series, rt,
                           "eam-small", exact=True)
+
+
+def eam_sweep_warps(geom):
+    """Warps of a B3 CTA at this geometry, from the kernel's own sizing:
+    its dynamic shared memory is (C + W (135 + 81 K)) words."""
+    smem = _build.load().nm_eam_sweep_smem(*geom.ncell, geom.kcap)
+    return (smem // 4 - geom.ncells) // (135 + 81 * geom.kcap)
 
 
 def phase_eam_full(name, table):
@@ -658,6 +703,27 @@ def phase_eam_full(name, table):
             f"call, bound {BOUND[k][0]:.4f} ms ({BOUND[k][1]}) (K="
             f"{geom.kcap}, cells {geom.ncell}, ncyc={ncyc}, R={r}, CUDA "
             f"events after warm-up) on {name}")
+    # B3 at the slot capacity the main path's chunks run at: after one
+    # warm-up chunk (as profile_chunk.py takes it) the runner has grown K.
+    # Held to its plain version there as at set-up, then timed on the same
+    # inputs
+    warm = runner.run_sampling(setup, write_traj=False)[0]
+    gk = warm.geom
+    ncyc_k = SC.default_ncyc(gk)
+    params_k = SC.params_of(warm.states, gk, warm.us.kb)
+    log(f"[eam-full] after a warm-up chunk: K={gk.kcap}, cells {gk.ncell}, "
+        f"ncyc={ncyc_k}; B3 takes {eam_sweep_warps(gk)} warps for {gk.cw} "
+        f"cells a colour")
+    compare_eam_sweep(gk, warm.slabs[:3], warm.slabs[3], warm.slab_count,
+                      params_k, scal, series, rt, "eam-full, chunk K",
+                      exact=False, ncyc=ncyc_k)
+    chunk = tuple(a.clone() for a in warm.slabs[:3] + warm.slabs[4:])
+    ms_k = cuda_ms(lambda: CE.sweep(gk, ncyc_k, rt, chunk, warm.slab_count,
+                                    params_k, scal, series, seeds), 3)
+    KERNELS["eam_sweep"].update(chunk_kcap=gk.kcap, chunk_ms=ms_k)
+    log(f"[eam-full] eam_sweep after a warm-up chunk: kernel {ms_k:.3f} ms "
+        f"per call at the chunk's K={gk.kcap} (cells {gk.ncell}, ncyc="
+        f"{ncyc_k}, R={r}, CUDA events after warm-up) on {name}")
 
 
 def phase_eam_main(name, table):

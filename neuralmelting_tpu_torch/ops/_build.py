@@ -39,6 +39,8 @@ _SIGNATURES = {
     "nm_cellmc_sweep": [_P] * 8 + [_I] * 8 + [_P],
     # nx, ny, nz, K -> dynamic shared memory bytes of the sweep kernel
     "nm_cellmc_sweep_smem": [_I] * 4,
+    # -> static shared memory bytes of the sweep kernel
+    "nm_cellmc_sweep_static_smem": [],
     # x, y, z, params, scal, c_phi, c_phid, c_rho, c_rhod, c_f, c_fd,
     # scale, stats, rho, fp, R, nx, ny, nz, K, n_phi, n_rho, n_f,
     # with_virial, stream
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "nm_eam_sweep": [_P] * 12 + [_I] * 10 + [_P],
     # nx, ny, nz, K -> dynamic shared memory bytes of the EAM sweep
     "nm_eam_sweep_smem": [_I] * 4,
+    # -> static shared memory bytes of the EAM sweep
+    "nm_eam_sweep_static_smem": [],
     # pos, box, ids, old_r, new_r, out, R, N, M, sig2, rc2, 4 eps,
     # 24 eps, stream
     "nm_lj_delta": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],

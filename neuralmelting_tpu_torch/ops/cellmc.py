@@ -220,7 +220,8 @@ def _sweep_cuda(geom, ncyc, rt, slabs, count, params, pot3, seeds):
         raise ValueError(f"sweep kernel takes 1..32 movers per cell, got "
                          f"nsub={geom.nsub}")
     lib = _build.load()
-    smem = lib.nm_cellmc_sweep_smem(*geom.ncell, geom.kcap)
+    smem = (lib.nm_cellmc_sweep_smem(*geom.ncell, geom.kcap)
+            + lib.nm_cellmc_sweep_static_smem())
     if smem > _MAX_SMEM:
         raise ValueError(f"sweep needs {smem} B of shared memory")
     stats = torch.empty((r, 8), dtype=torch.float32, device=dev)

@@ -319,7 +319,8 @@ def _sweep_cuda(geom, ncyc, rt, slabs4, count, params, scal, series, seeds):
     _check("seeds", seeds, (ntiles, 2), torch.int32, dev)
     _check_series(series, dev)
     lib = _build.load()
-    smem = lib.nm_eam_sweep_smem(*geom.ncell, geom.kcap)
+    smem = (lib.nm_eam_sweep_smem(*geom.ncell, geom.kcap)
+            + lib.nm_eam_sweep_static_smem())
     if smem > _MAX_SMEM:
         raise ValueError(f"EAM sweep needs {smem} B of shared memory")
     stats = torch.empty((r, 8), dtype=torch.float32, device=dev)
