@@ -5,11 +5,15 @@
 Phases, in order (any failed check exits non-zero):
   1. build       — compile the CUDA kernels from neuralmelting_tpu_torch/csrc
                    (one nvcc per source, all at once, then one link) and
-                   print each kernel's ptxas registers and spills;
+                   print each kernel's ptxas registers and spills (none
+                   allowed in B1 and B4);
   LJ path (kernels B1 total, B2 sweep):
   2. small       — B1 and B2 against their plain PyTorch versions at the
                    rc=1.5 test geometry, R=3 and R=130 (two 128-replica
-                   threefry tiles);
+                   threefry tiles), and B1 on a slab with empty cells and
+                   cells at count == K; every B1 (and B4) comparison also
+                   holds two kernel calls on the same inputs to the same
+                   bits;
   3. full        — the same at the north-star geometry: LJ, 4096 atoms
                    (16x8x8 fcc cells), a 32x32 (P,T) grid, R=1024; CUDA-event
                    times of each kernel beside its plain version;
@@ -27,12 +31,15 @@ Phases, in order (any failed check exits non-zero):
                    than cells a colour, two rounds a colour step):
                    identical decisions, the density slab, the pe identity
                    against fresh B4 totals, every atom inside its cell;
+                   and B4 on a slab with empty cells and cells at
+                   count == K;
   7. eam-full    — the same at scripts/eambench.py's configuration (AL,
                    16x8x8 fcc = 4096 atoms, 16x16 grid, R=256, seed 11);
                    CUDA-event times of each kernel beside its plain version;
-                   then B3 again at the slot capacity K of the main path's
-                   chunks (after one warm-up chunk): held to its plain
-                   version and timed on the same inputs;
+                   then B3 and B4 (with and without the virial) again at
+                   the slot capacity K of the main path's chunks (after
+                   one warm-up chunk): held to their plain versions and
+                   timed on the same inputs;
   8. eam-main    — melting_pipeline(element="AL", engine="cellmc") on the
                    default device at that configuration with a short
                    schedule; B3/B4 counters zeroed before and read after;
@@ -68,8 +75,9 @@ kernels' JSON line (each kernel's launches on its path's main run, error
 against its plain version, CUDA-event ms of kernel and plain version at
 full width, and the least time the card could take for that work,
 bound_ms, from its bytes over 3.35 TB/s or its f32 operations over
-67 TFLOP/s, whichever is larger; B3's entry also carries chunk_kcap and
-chunk_ms, its time at the chunks' K), and {"ok": true, "device": {...}}.
+67 TFLOP/s, whichever is larger; B3's and B4's entries also carry
+chunk_kcap and chunk_ms, the time at the chunks' K, B4's also ms_virial,
+bound_ms_virial and chunk_ms_virial), and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it
 exits non-zero and prints no result. Imports nothing of jax or of the JAX
 package.
@@ -154,8 +162,15 @@ HBM_BPS = 3.35e12
 F32_OPS = 67e12
 # f32 operations per pair term, counted from the kernels' code (a divide
 # or a square root counts as one, so the bound stays a lower bound):
-# LJ total: 3 sub, 5 for r^2, max, divide, 4 mul, 2 compares, 4 adds
-OPS_LJ_TOTAL = 20
+# LJ total: each half-stencil candidate pair that the box test keeps 3
+# sub, 5 for r^2 and the compare; a pair inside max(rc, rc/s) also max,
+# divide, 4 mul, 2 compares and 4 adds
+OPS_LJ_CAND = 9
+OPS_LJ_IN = 12
+# B1 and B4: the box test of an atom and a nonempty stencil cell, 2 sub
+# and 2 max an axis, 3 mul, 2 add and the compare (cellmc_common.cuh,
+# box_gap2)
+OPS_BOX = 18
 # LJ sweep: two r^2 (16), one shared divide, the e(new) - e(old) algebra
 OPS_LJ_SWEEP = 30
 # EAM: one r^2 (8) plus masks and the image shift per candidate pair
@@ -226,6 +241,40 @@ def small_case(r, rc=1.5, seed=0, nsub=16):
         torch.as_tensor(params, device=DEV), pot3
 
 
+def edge_case(rc, stride, nsub, r, seed):
+    """R replicas with K=8 slots a cell on a 2x2x2 sub-grid of sites,
+    jittered: cell 0 holds K atoms, cell 1 none, every other cell a seeded
+    count in [0, K]. Cells are 1.1 rc wide. Returns (geom, slabs, ids,
+    count, params)."""
+    kcap = 8
+    n = 4 if stride == 2 else 3
+    w = 1.1 * rc
+    box = np.full(3, n * w)
+    geom = CG.make_geom(box, rc, r * n ** 3 * kcap, nsub=nsub, stride=stride,
+                        kcap=kcap)
+    check(geom.ncell == (n, n, n), f"edge case cells {geom.ncell}")
+    g = np.random.default_rng(seed)
+    cnt = g.integers(0, kcap + 1, (r, geom.ncells))
+    cnt[:, 0], cnt[:, 1] = kcap, 0
+    slot = np.arange(geom.rows) % kcap
+    occ = slot[None] < np.repeat(cnt, kcap, axis=1)            # (R, C*K)
+    tabs = CG.geom_tables(geom)
+    slabs = []
+    for a in range(3):
+        site = tabs[a] + 0.25 + 0.5 * ((slot >> a) & 1)
+        v = (site[None] + 0.03 * g.standard_normal(occ.shape)) * w
+        slabs.append(torch.as_tensor(np.where(occ, v, CG.INVALID)
+                                     .astype(np.float32), device=DEV))
+    ids = torch.as_tensor(np.where(occ, np.arange(geom.rows)[None], -1),
+                          device=DEV)
+    count = torch.as_tensor(cnt.astype(np.int32), device=DEV)
+    temps = np.linspace(0.6, 1.8, r)
+    params = np.concatenate([(1.0 / temps)[:, None], np.full((r, 1), 0.1),
+                             np.full((r, 3), w), np.full((r, 3), n * w)], 1)
+    return geom, tuple(slabs), ids, count, torch.as_tensor(
+        params.astype(np.float32), device=DEV)
+
+
 # ---------------------------------------------------------------------------
 # kernel against plain version
 # ---------------------------------------------------------------------------
@@ -241,8 +290,10 @@ def compare_total(geom, slabs, params, pot3, tag):
     r = slabs[0].shape[0]
     scale = torch.linspace(0.98, 1.02, r, device=DEV)
     k = CK.total(geom, slabs, params, pot3, scale)
+    k2 = CK.total(geom, slabs, params, pot3, scale)
     p = CK.total_plain(geom, slabs, params, pot3, scale)
     torch.cuda.synchronize()
+    check(torch.equal(k, k2), f"[{tag}] two total calls differ")
     rel = float(((k[:, :4] - p[:, :4]).abs() / p[:, :4].abs()).max())
     ERR["total"] = max(ERR["total"], float((k - p).abs().max()))
     log(f"[{tag}] total R={r}: max rel err of sums {rel:.3e} "
@@ -328,6 +379,44 @@ def bound(nbytes, nops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def half_candidates(geom, slabs, params, count, cut2):
+    """The work of a half-stencil walk with the box test, all replicas:
+    (candidate pairs, box tests). The candidates are each cell's own
+    unordered pairs and, for each atom, the atoms of every half-stencil
+    cell whose bounding box (at the image the stencil sees it) lies at a
+    squared distance below cut2, formed in f32 as the kernels' box_gap2
+    forms it; a cell beyond holds no pair inside cut2. A box test is one
+    (atom, nonempty half-stencil cell)."""
+    r, dev = slabs[0].shape[0], slabs[0].device
+    c, k = geom.ncells, geom.kcap
+    _, nb, img = CG.stencil(geom, CG.offsets13(), dev)
+    v = [a.reshape(r, c, k) for a in slabs]
+    occ = v[0] < 1e29
+    big = torch.finfo(torch.float32).max
+    lo = [torch.where(occ, a, big).amin(-1) for a in v]        # (R, C)
+    hi = [torch.where(occ, a, -big).amax(-1) for a in v]
+    cnt = count.to(torch.float64)
+    kept = float((cnt * (cnt - 1) / 2).sum())
+    tests = 0.0
+    for r0 in range(0, r, 16):
+        rs = slice(r0, min(r, r0 + 16))
+        g2 = 0.0
+        for a in range(3):
+            sh = img[..., a].to(torch.float32)[None] * params[rs, 5 + a,
+                                                              None, None]
+            b_lo = (lo[a][rs][:, nb] + sh)[:, :, None, :]       # (r, C, 1, O)
+            b_hi = (hi[a][rs][:, nb] + sh)[:, :, None, :]
+            m = v[a][rs][..., None]                            # (r, C, K, 1)
+            gap = torch.clamp(torch.maximum(b_lo - m, m - b_hi), min=0.0)
+            g2 = g2 + gap * gap
+        ncnt = count[rs][:, nb][:, :, None, :]
+        live = occ[rs][..., None] & (ncnt > 0)
+        tests += float(live.sum())
+        kept += float(torch.where(live & (g2 < cut2), ncnt, 0)
+                      .to(torch.float64).sum())
+    return kept, tests
+
+
 def pairs_within(geom, slabs, params, rc2):
     """Ordered atom pairs closer than the cutoff, all replicas."""
     r, dev = slabs[0].shape[0], slabs[0].device
@@ -363,6 +452,7 @@ def phase_build():
         f"python {sys.version.split()[0]}")
     # ptxas -v: per kernel its registers, then its stack and spills
     kernel = spill = ""
+    seen = []
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -372,6 +462,13 @@ def phase_build():
         elif "registers" in line:
             log(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}; "
                 f"{spill}")
+            seen.append((kernel, spill))
+    # the redesigned total kernels keep their loop state in registers
+    for src in ("cellmc_total.cu", "cellmc_eam_total.cu"):
+        mine = [sp for k, sp in seen if k.startswith(src + " ")]
+        check(mine and all("0 bytes spill stores" in sp
+                           and "0 bytes spill loads" in sp for sp in mine),
+              f"[build] {src}: spills or no ptxas report: {mine}")
 
 
 def kernel_name(mangled):
@@ -381,7 +478,10 @@ def kernel_name(mangled):
     if not m:
         return mangled
     n = int(m.group(2))
-    return f"{m.group(1)}.cu {mangled[m.end():m.end() + n]}"
+    tail = mangled[m.end() + n:]
+    # a template kernel over one bool: ILb0E / ILb1E
+    targ = {"ILb0E": "<false>", "ILb1E": "<true>"}.get(tail[:5], "")
+    return f"{m.group(1)}.cu {mangled[m.end():m.end() + n]}{targ}"
 
 
 def phase_small():
@@ -393,6 +493,13 @@ def phase_small():
         compare_total(geom, slabs, params, pot3, "small")
         compare_sweep(geom, slabs, ids, count, params, pot3, rt, "small",
                       exact=True)
+    geom, slabs, _, count, params = edge_case(1.5, 2, 8, 3, 5)
+    log(f"[small] edge case: cells {geom.ncell}, K={geom.kcap}, empty cells "
+        f"{int((count == 0).sum())}, full cells "
+        f"{int((count == geom.kcap).sum())}")
+    compare_total(geom, slabs, params, torch.tensor([1.0, 1.0, 1.5, 0.0],
+                                                    device=DEV),
+                  "small, edge")
 
 
 def phase_full(name):
@@ -426,11 +533,14 @@ def phase_full(name):
     # least time for the same work on these inputs
     cnt = setup.slab_count.to(torch.float64)
     rows = r * geom.rows
-    pairs = float((cnt * (cnt - 1) / 2).sum()
-                  + (cnt * stencil_sum(geom, setup.slab_count,
-                                       CG.offsets13())).sum())
+    rc2 = float(pot3[2]) ** 2
+    n_in = pairs_within(geom, slabs, params, rc2) / 2      # s = 1
+    kept, tests = half_candidates(geom, slabs, params, setup.slab_count, rc2)
     BOUND["total"] = bound(4 * (3 * rows + 10 * r + 4) + 4 * 8 * r,
-                           pairs * OPS_LJ_TOTAL)
+                           kept * OPS_LJ_CAND + tests * OPS_BOX
+                           + n_in * OPS_LJ_IN)
+    log(f"[full] B1's bound counts {kept:.0f} candidate pairs, {tests:.0f} "
+        f"box tests and {n_in:.0f} pairs inside rc")
     movers = torch.clamp(cnt, max=geom.nsub)
     cand = stencil_sum(geom, setup.slab_count, STENCIL27) - 1.0
     BOUND["sweep"] = bound(
@@ -531,17 +641,34 @@ def compare_eam_total(geom, slabs, ids, params, scal, series, tag):
     for wv, scale in ((True, torch.ones(r, device=DEV)),
                       (False, torch.linspace(0.98, 1.02, r, device=DEV))):
         k, krho = CE.total(geom, slabs, params, scal, series, scale, wv)
+        k2, krho2 = CE.total(geom, slabs, params, scal, series, scale, wv)
         p, prho = CE.total_plain(geom, slabs, params, scal, series, scale,
                                  wv)
         torch.cuda.synchronize()
+        check(torch.equal(k, k2) and torch.equal(krho, krho2),
+              f"[{tag}] two eam total calls differ (virial={wv})")
         rows = [0, 1, 2, 3, 5, 6] if wv else [0, 2, 3]
-        rel = float(((k[:, rows] - p[:, rows]).abs()
-                     / p[:, rows].abs().clamp(min=1.0)).max())
+        # each row relative to its own magnitude, at least 1; but E = E_pair
+        # + E_emb and W = -(W_pair' + W_emb') are sums of two parts that
+        # cancel (W near zero pressure), so those two rows relative to the
+        # magnitude of their parts, at least 1
+        mag = p.abs()
+        mag[:, 0] = mag[:, 2] + mag[:, 3]
+        mag[:, 1] = mag[:, 5] + mag[:, 6]
+        err = (k - p).abs() / mag.clamp(min=1.0)
+        by_row = {q: float(err[:, q].max()) for q in rows}
+        rel = max(by_row.values())
+        # rows 0 and 1 relative to themselves, for the record
+        two = [q for q in rows if q < 2]
+        own = ((k - p).abs() / p.abs().clamp(min=1.0))[:, two].max(0)[0]
         drho = float((krho - prho).abs()[valid].max())
         ERR["eam_total"] = max(ERR["eam_total"], drho)
         log(f"[{tag}] eam total R={r} virial={wv}: max rel err of stats "
-            f"{rel:.3e} (limit 1e-5), max |rho_k - rho_p| {drho:.3e} "
-            f"(limit 2e-5)")
+            f"{rel:.3e} (limit 1e-5; by row "
+            + ", ".join(f"{q}: {e:.1e}" for q, e in by_row.items())
+            + f"; rows {two} relative to themselves "
+            + ", ".join(f"{float(e):.1e}" for e in own)
+            + f"), max |rho_k - rho_p| {drho:.3e} (limit 2e-5)")
         check(rel <= 1e-5, f"[{tag}] eam total disagrees: rel {rel}")
         check(drho <= 2e-5, f"[{tag}] eam total rho disagrees: {drho}")
         zero = [4, 7] if wv else [1, 4, 5, 6, 7]
@@ -626,6 +753,12 @@ def phase_eam_small(table):
                           "eam-small")
         compare_eam_sweep(geom, slabs, ids, count, params, scal, series, rt,
                           "eam-small", exact=True)
+    geom, slabs, ids, count, params = edge_case(cheb.rc_host, 3, 1, 3, 6)
+    log(f"[eam-small] edge case: cells {geom.ncell}, K={geom.kcap}, empty "
+        f"cells {int((count == 0).sum())}, full cells "
+        f"{int((count == geom.kcap).sum())}")
+    compare_eam_total(geom, slabs, ids, params, scal, series,
+                      "eam-small, edge")
 
 
 def eam_sweep_warps(geom):
@@ -669,23 +802,28 @@ def phase_eam_full(name, table):
                                     True), 5)
     # least time for the same work on these inputs. B4's phi and rho
     # terms are symmetric in i and j, so a pass needs each unordered
-    # candidate pair (half stencil) once and a Clenshaw pair term for
-    # each unordered pair inside rc; a B3 trial needs its mover's 27
-    # cells at the old and the new position
-    cnt = count.to(torch.float64)
-    half = float((cnt * (cnt - 1) / 2
-                  + cnt * stencil_sum(geom, count, CG.offsets13())).sum())
+    # candidate pair (half stencil, the cells the box test keeps) once
+    # and a Clenshaw pair term for each unordered pair inside rc (with
+    # the virial also phi' and f_rho' there, and F' of each atom); a B3
+    # trial needs its mover's 27 cells at the old and the new position
     cand = stencil_sum(geom, count, STENCIL27) - 1.0
     n_in = pairs_within(geom, slabs, params, float(scal[0]))
+    half, tests = half_candidates(geom, slabs, params, count,
+                                  float(scal[0]))
     natoms = r * geom.natoms
     nbar = n_in / natoms
     n_phi, n_rho, n_f = nser
     rows = r * geom.rows
     nser_all = 2 * (n_phi + n_rho + n_f)
+    ops_total = (half * OPS_EAM_CAND + tests * OPS_BOX
+                 + n_in / 2 * (n_phi + n_rho) * 3 + natoms * (3 * n_f + 4))
     BOUND["eam_total"] = bound(
         4 * (3 * rows + 9 * r + 8 + nser_all) + 4 * (8 * r + rows),
-        half * OPS_EAM_CAND + n_in / 2 * (n_phi + n_rho) * 3
-        + natoms * (3 * n_f + 4))
+        ops_total)
+    bound_v = bound(4 * (3 * rows + 9 * r + 8 + nser_all) + 4 * (8 * r + rows),
+                    ops_total + n_in / 2 * (n_phi + n_rho) * 3
+                    + natoms * (3 * n_f + 4))
+    KERNELS["eam_total"].update(ms_virial=ms_v, bound_ms_virial=bound_v[0])
     occupied = (count > 0).to(torch.float64)
     trials = ncyc * float(occupied.sum())
     BOUND["eam_sweep"] = bound(
@@ -695,18 +833,20 @@ def phase_eam_full(name, table):
         + trials * (2 * nbar * (n_phi + n_rho) * 3 + 2 * nbar * n_f * 3
                     + 2 * n_f * 3))
     log(f"[eam-full] ordered pairs inside rc {n_in} ({nbar:.2f} per "
-        f"atom), {trials:.0f} trials per sweep; B4 with the virial "
-        f"{ms_v:.3f} ms")
+        f"atom), {trials:.0f} trials per sweep; B4's bound counts "
+        f"{half:.0f} candidate pairs and {tests:.0f} box tests; B4 with "
+        f"the virial "
+        f"{ms_v:.3f} ms, bound {bound_v[0]:.4f} ms ({bound_v[1]})")
     for k in ("eam_sweep", "eam_total"):
         ms, pms = TIMES[k]
         log(f"[eam-full] {k}: kernel {ms:.3f} ms, plain {pms:.3f} ms per "
             f"call, bound {BOUND[k][0]:.4f} ms ({BOUND[k][1]}) (K="
             f"{geom.kcap}, cells {geom.ncell}, ncyc={ncyc}, R={r}, CUDA "
             f"events after warm-up) on {name}")
-    # B3 at the slot capacity the main path's chunks run at: after one
-    # warm-up chunk (as profile_chunk.py takes it) the runner has grown K.
-    # Held to its plain version there as at set-up, then timed on the same
-    # inputs
+    # B3 and B4 at the slot capacity the main path's chunks run at: after
+    # one warm-up chunk (as profile_chunk.py takes it) the runner has
+    # grown K. Held to their plain versions there as at set-up, then timed
+    # on the same inputs
     warm = runner.run_sampling(setup, write_traj=False)[0]
     gk = warm.geom
     ncyc_k = SC.default_ncyc(gk)
@@ -724,6 +864,17 @@ def phase_eam_full(name, table):
     log(f"[eam-full] eam_sweep after a warm-up chunk: kernel {ms_k:.3f} ms "
         f"per call at the chunk's K={gk.kcap} (cells {gk.ncell}, ncyc="
         f"{ncyc_k}, R={r}, CUDA events after warm-up) on {name}")
+    compare_eam_total(gk, warm.slabs[:3], warm.slabs[3], params_k, scal,
+                      series, "eam-full, chunk K")
+    t4 = [cuda_ms(lambda: CE.total(gk, warm.slabs[:3], params_k, scal,
+                                   series, ones, wv), 10)
+          for wv in (False, True)]
+    KERNELS["eam_total"].update(chunk_kcap=gk.kcap, chunk_ms=t4[0],
+                                chunk_ms_virial=t4[1])
+    log(f"[eam-full] eam_total after a warm-up chunk: kernel {t4[0]:.3f} ms "
+        f"per call, {t4[1]:.3f} ms with the virial, at the chunk's K="
+        f"{gk.kcap} (set-up K={geom.kcap}: {TIMES['eam_total'][0]:.3f} / "
+        f"{ms_v:.3f} ms; R={r}, CUDA events after warm-up) on {name}")
 
 
 def phase_eam_main(name, table):

@@ -1,4 +1,6 @@
-// Slab geometry shared by the cell-MC kernels (stride-2 checkerboard).
+// Slab geometry of the LJ cell-MC kernels (stride-2 checkerboard), and the
+// per-cell counts and bounding boxes and the candidate walk that the total
+// kernels B1 and B4 share.
 //
 // A replica's slab is C*K rows per coordinate: C cells in colour-major
 // order (8 colours x the (hx, hy, hz) within-colour grid), K slots per
@@ -69,6 +71,128 @@ __device__ __forceinline__ int neighbor(const Geo& g, const int* c,
     }
   }
   return slab_cell(g, nb) * g.K;
+}
+
+// Per cell of a replica's slabs (C cells of K slots, occupied slots packed
+// below the count): scnt[c] = the count, the popcount of a ballot of
+// x < kValidBelow per 32 slots, and sbox[6 c ..] = the least x, y, z and
+// the greatest x, y, z of its atoms (the largest float and its negative
+// for an empty cell). Warp `warp` of `nwarps` takes cells warp, warp +
+// nwarps, ...
+__device__ __forceinline__ void counts_and_boxes(const float* x,
+                                                 const float* y,
+                                                 const float* z, int C,
+                                                 int K, int warp, int nwarps,
+                                                 int* scnt, float* sbox) {
+  const int lane = threadIdx.x & 31;
+  for (int c = warp; c < C; c += nwarps) {
+    int n = 0;
+    float lo[3] = {3.402823466e38f, 3.402823466e38f, 3.402823466e38f};
+    float hi[3] = {-3.402823466e38f, -3.402823466e38f, -3.402823466e38f};
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const bool occ = k < K && x[c * K + k] < kValidBelow;
+      n += __popc(__ballot_sync(0xffffffffu, occ));
+      if (occ) {
+        const float v[3] = {x[c * K + k], y[c * K + k], z[c * K + k]};
+        for (int a = 0; a < 3; ++a) {
+          lo[a] = fminf(lo[a], v[a]);
+          hi[a] = fmaxf(hi[a], v[a]);
+        }
+      }
+    }
+    for (int a = 0; a < 3; ++a)
+      for (int off = 16; off > 0; off >>= 1) {
+        lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+        hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+      }
+    if (lane == 0) {
+      scnt[c] = n;
+      for (int a = 0; a < 3; ++a) {
+        sbox[6 * c + a] = lo[a];
+        sbox[6 * c + 3 + a] = hi[a];
+      }
+    }
+  }
+}
+
+// Squared distance from m to the box b = [least x, y, z, greatest x, y,
+// z] (a cell's box plus an image shift, each coordinate added in f32 as a
+// pair's candidate is). Each axis gap is formed with a pair's own f32
+// operations, (c + h) - m, which are monotone, so the result is <= the
+// r^2 the kernels compute for m and any atom of the cell: a cell whose
+// gap is >= a cutoff holds no pair inside it, exactly.
+__device__ __forceinline__ float box_gap2(const float* b, const float* m) {
+  float g[3];
+  for (int a = 0; a < 3; ++a)
+    g[a] = fmaxf(fmaxf(b[a] - m[a], m[a] - b[3 + a]), 0.f);
+  return g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+}
+
+// One mover's candidate walk over a stencil of NOFF (<= 32) cells, the
+// loop that B1 and B4 share. Lane o < NOFF brings stencil cell o: `first`,
+// the row of its first candidate, and `n`, its number of candidates (0 on
+// the other lanes and for a cell that is skipped); sh[3 o ..] holds the
+// cell's image shift. A warp prefix over the n flattens the candidates
+// into one list: candidate t is row beg[o] + t of the stencil cell o with
+// end[o-1] <= t < end[o] (beg and end: NOFF words each of the warp's
+// shared memory). The lanes take the candidates 32 at a time and compute
+// r^2 = |(p_row + shift) - mp|^2 only; keep(row, r2) says whether a pair
+// is listed, and __ballot_sync and __popc prefixes give each listed pair
+// its position `at` after the nlist entries the list holds, where
+// put(at, row, r2) writes it. flush(32) runs whenever the list holds 32
+// or more and must take 32 off it: one step appends at most 32, so a
+// list of 64 entries never overflows.
+template <int NOFF, class Keep, class Put, class Flush>
+__device__ __forceinline__ void walk_candidates(
+    const float* x, const float* y, const float* z, const float* mp,
+    int first, int n, int* beg, int* end, const float* sh, int& nlist,
+    Keep&& keep, Put&& put, Flush&& flush) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const float mx = mp[0], my = mp[1], mz = mp[2];
+  int incl = n;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kAll, incl, off);
+    if (lane >= off) incl += v;
+  }
+  __syncwarp();  // the previous walk has read the tables
+  if (lane < NOFF) {
+    end[lane] = incl;
+    beg[lane] = first - (incl - n);
+  }
+  const int ncand = __shfl_sync(kAll, incl, NOFF - 1);
+  __syncwarp();
+  int o = 0, tend = end[0], rb = beg[0];
+  float h0 = sh[0], h1 = sh[1], h2 = sh[2];
+  for (int t0 = 0; t0 < ncand; t0 += 32) {
+    const int t = t0 + lane;
+    bool in = false;
+    int row = 0;
+    float r2 = 0.f;
+    if (t < ncand) {
+      while (t >= tend) {
+        ++o;
+        tend = end[o];
+        rb = beg[o];
+        h0 = sh[3 * o];
+        h1 = sh[3 * o + 1];
+        h2 = sh[3 * o + 2];
+      }
+      row = rb + t;
+      const float d0 = (x[row] + h0) - mx;
+      const float d1 = (y[row] + h1) - my;
+      const float d2 = (z[row] + h2) - mz;
+      r2 = d0 * d0 + d1 * d1 + d2 * d2;
+      in = keep(row, r2);
+    }
+    const unsigned ball = __ballot_sync(kAll, in);
+    if (in) put(nlist + __popc(ball & below), row, r2);
+    nlist += __popc(ball);
+    __syncwarp();
+    if (nlist >= 32) flush(32);
+  }
 }
 
 }  // namespace nm

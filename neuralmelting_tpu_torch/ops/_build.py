@@ -34,6 +34,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, y, z, params, pot3, scale, out, R, nx, ny, nz, K, stream
     "nm_cellmc_total": [_P] * 7 + [_I] * 5 + [_P],
+    # nx, ny, nz, K -> dynamic shared memory bytes of the total kernel
+    "nm_cellmc_total_smem": [_I] * 4,
+    # -> static shared memory bytes of the total kernel
+    "nm_cellmc_total_static_smem": [],
     # x, y, z, count, params, pot3, seeds, stats, R, nx, ny, nz, K, J,
     # ncyc, rt, stream
     "nm_cellmc_sweep": [_P] * 8 + [_I] * 8 + [_P],
@@ -42,9 +46,16 @@ _SIGNATURES = {
     # -> static shared memory bytes of the sweep kernel
     "nm_cellmc_sweep_static_smem": [],
     # x, y, z, params, scal, c_phi, c_phid, c_rho, c_rhod, c_f, c_fd,
-    # scale, stats, rho, fp, R, nx, ny, nz, K, n_phi, n_rho, n_f,
+    # scale, stats, rho, work, R, nx, ny, nz, K, n_phi, n_rho, n_f,
     # with_virial, stream
     "nm_eam_total": [_P] * 15 + [_I] * 9 + [_P],
+    # K -> dynamic shared memory bytes of the EAM total
+    "nm_eam_total_smem": [_I],
+    # nx, ny, nz, K, with_virial -> words of the EAM total's device
+    # scratch a replica takes
+    "nm_eam_total_work_words": [_I] * 5,
+    # -> static shared memory bytes of the EAM total
+    "nm_eam_total_static_smem": [],
     # x, y, z, rho, count, params, scal, c_phi, c_rho, c_f, seeds, stats,
     # R, nx, ny, nz, K, n_phi, n_rho, n_f, ncyc, rt, stream
     "nm_eam_sweep": [_P] * 12 + [_I] * 10 + [_P],

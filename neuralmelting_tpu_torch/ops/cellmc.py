@@ -120,10 +120,12 @@ def _total_cuda(geom, slabs, params, pot3, scale):
     _check("params", params, (r, 8), torch.float32, dev)
     _check("pot3", pot3, (4,), torch.float32, dev)
     _check("scale", scale, (r,), torch.float32, dev)
-    if 3 * geom.rows * 4 > _MAX_SMEM:
-        raise ValueError(f"slab of {geom.rows} rows exceeds shared memory")
-    out = torch.empty((r, 8), dtype=torch.float32, device=dev)
     lib = _build.load()
+    smem = (lib.nm_cellmc_total_smem(*geom.ncell, geom.kcap)
+            + lib.nm_cellmc_total_static_smem())
+    if smem > _MAX_SMEM:
+        raise ValueError(f"total needs {smem} B of shared memory")
+    out = torch.empty((r, 8), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nm_cellmc_total(

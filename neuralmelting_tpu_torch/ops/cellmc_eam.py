@@ -190,19 +190,25 @@ def _total_cuda(geom, slabs3, params, scal, series, scale, with_virial):
     _check("scal", scal, (8,), torch.float32, dev)
     _check("scale", scale, (r,), torch.float32, dev)
     _check_series(series, dev)
+    lib = _build.load()
+    smem = (lib.nm_eam_total_smem(geom.kcap)
+            + lib.nm_eam_total_static_smem())
+    if smem > _MAX_SMEM:
+        raise ValueError(f"EAM total needs {smem} B of shared memory")
     stats = torch.empty((r, 8), dtype=torch.float32, device=dev)
     rho = torch.empty((r, geom.rows), dtype=torch.float32, device=dev)
-    # F'(rho) of every slot, read back by the embedding virial pass
-    fp = torch.empty((r, geom.rows) if with_virial else (1,),
-                     dtype=torch.float32, device=dev)
-    lib = _build.load()
+    # the kernel's scratch: each cell's count and bounding box and, with
+    # the virial, F'(rho) of every slot, read back by its second pass
+    work = torch.empty((r, lib.nm_eam_total_work_words(
+        *geom.ncell, geom.kcap, int(bool(with_virial)))),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nm_eam_total(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), params.data_ptr(),
             scal.data_ptr(), *(c.data_ptr() for c in series),
             scale.data_ptr(), stats.data_ptr(), rho.data_ptr(),
-            fp.data_ptr(), r, *geom.ncell, geom.kcap, series[0].shape[0],
+            work.data_ptr(), r, *geom.ncell, geom.kcap, series[0].shape[0],
             series[2].shape[0], series[4].shape[0], int(bool(with_virial)),
             stream)
     if err != 0:

@@ -1,4 +1,4 @@
-"""Same-card A/B of the sweep kernels B2 and B3, and B4, of two trees.
+"""Same-card A/B of the cell-MC kernels B1-B4 of two trees.
 
     python3 -m neuralmelting_tpu_torch.sweep_ab OLD_TREE NEW_TREE
 
@@ -11,12 +11,13 @@ directory. A tree is a checkout of this repository, for example a
 call, the ms per call of
   * B2 at the LJ north star (profile_chunk.configs()["lj"]: cells
     (8,4,4), K=48, J=16, ncyc=2, R=1024), 5 calls;
+  * B1 there at s = 1, 10 calls;
   * B3 at scripts/eambench.py's configuration (configs()["eam"]: cells
     (15,6,6), ncyc=8, R=256) at the set-up K, 3 calls;
-  * B4 there, without the virial (it shares B3's Clenshaw series), 10
-    calls;
-  * B3 again at the K of the main path's chunks, after one warm-up chunk
-    as profile_chunk.py takes it, 3 calls.
+  * B4 there, without and with the virial, 10 calls each;
+  * B3 (3 calls) and B4 without and with the virial (10 calls each) again
+    at the K of the main path's chunks, after one warm-up chunk as
+    profile_chunk.py takes it.
 Each reading prints one JSON line; the last lines are the card's name and
 power limit (nvidia-smi) and one JSON object of all readings. Needs a CUDA
 device; imports nothing of jax.
@@ -46,8 +47,9 @@ def _cuda_ms(fn, reps):
 
 
 def measure():
-    """One reading of the tree on the import path: {b2_ms, b3_ms, b4_ms,
-    b3_chunk_ms, chunk_kcap}."""
+    """One reading of the tree on the import path: {b2_ms, b1_ms, kcap,
+    b3_ms, b4_ms, b4v_ms, chunk_kcap, b3_chunk_ms, b4_chunk_ms,
+    b4v_chunk_ms}."""
     import torch
 
     from neuralmelting_tpu_torch import runner
@@ -71,14 +73,18 @@ def measure():
     out["b2_ms"] = _cuda_ms(lambda: CK.sweep(
         g, SC.default_ncyc(g), rt, work, s.slab_count, params, pot3,
         seeds), 5)
+    ones = torch.ones(r, device=dev)
+    out["b1_ms"] = _cuda_ms(lambda: CK.total(g, s.slabs[:3], params, pot3,
+                                             ones), 10)
     del s, work
 
     table = os.path.join(tempfile.mkdtemp(prefix="nm_ab_"), "al38.eam.alloy")
     eam_gen.write_setfl(table, rc=3.8)
     s = runner.setup_run(cfgs["eam"], setfl=table, engine="cellmc",
                          device=dev)
-    g, r = s.geom, s.states.temp.shape[0]
+    r = s.states.temp.shape[0]
     rt = SC.pick_rt(r)
+    ones = torch.ones(r, device=dev)
     scal, series, _ = CE.eam_pack(s.pot, dev)
     seeds = SC.tile_seeds((1, 2), 0, -(-r // rt), dev)
 
@@ -90,13 +96,17 @@ def measure():
             gk, SC.default_ncyc(gk), rt, work, st.slab_count, params, scal,
             series, seeds), 3)
 
+    def b4_ms(st, virial):
+        params = SC.params_of(st.states, st.geom, st.us.kb)
+        return _cuda_ms(lambda: CE.total(st.geom, st.slabs[:3], params, scal,
+                                         series, ones, virial), 10)
+
     out["kcap"], out["b3_ms"] = s.geom.kcap, b3_ms(s)
-    params = SC.params_of(s.states, g, s.us.kb)
-    ones = torch.ones(r, device=dev)
-    out["b4_ms"] = _cuda_ms(lambda: CE.total(g, s.slabs[:3], params, scal,
-                                             series, ones, False), 10)
+    out["b4_ms"], out["b4v_ms"] = b4_ms(s, False), b4_ms(s, True)
     warm = runner.run_sampling(s, write_traj=False)[0]
     out["chunk_kcap"], out["b3_chunk_ms"] = warm.geom.kcap, b3_ms(warm)
+    out["b4_chunk_ms"] = b4_ms(warm, False)
+    out["b4v_chunk_ms"] = b4_ms(warm, True)
     return out
 
 

@@ -1,18 +1,25 @@
-"""The premises the sweep kernels B2 and B3 rest on, held on the CPU.
+"""The premises the cell-MC kernels B1-B4 rest on, held on the CPU.
 
-The CUDA sweeps walk only the occupied slots of a neighbour cell, skip
-the per-pair algebra of a candidate outside the cutoff on both the old and
-the new side, and evaluate the Chebyshev series of two functions in one
-loop over a common, zero-padded length. Each is bit-neutral only if:
+The CUDA sweeps (B2, B3) and totals (B1, B4) walk only the occupied slots
+of a neighbour cell, skip the per-pair arithmetic of a candidate outside
+the cutoff, and evaluate the Chebyshev series of several functions in one
+loop over a common, zero-padded length. The totals take no count: they
+derive each cell's count from the packed slab (the number of slots below
+INVALID, which is the first INVALID slot). Each is bit-neutral only if:
 
 (a) slots [0, count) of every cell hold finite coordinates (and ids >= 0)
-    and slots [count, K) hold INVALID (and id -1), after ``bin_initial``
-    and after ``rebin_axis`` on each axis, for the LJ stride-2 and the EAM
-    stride-3 geometry; in the port and in the JAX package alike;
+    and slots [count, K) hold INVALID (and id -1), after ``bin_initial``,
+    after ``rebin_axis`` on each axis and after a volume trial's
+    ``sampler/cellmc.py::_rescale``, for the LJ stride-2 and the EAM
+    stride-3 geometry; in the port and, for bin and rebin, in the JAX
+    package alike; so the count the totals derive equals ``count``;
 (b) the terms the kernels skip are exactly +0.0 in the plain versions:
     ``ops/cellmc.py::_ediff`` when both r^2 >= rc^2 (r^2 = inf for an
-    INVALID slot included); the EAM plain version's phi and f_rho terms
-    outside rc; and F(rho + 0) - F(rho);
+    INVALID slot included); the EAM plain sweep's phi and f_rho terms
+    outside rc; F(rho + 0) - F(rho); ``ops/cellmc.py::total_plain``'s four
+    sums over pairs with r^2 >= max(rc^2, rc^2/s^2); and
+    ``ops/cellmc_eam.py::total_plain``'s pair energy, pair virial (phi'),
+    embedding virial (f_rho') and densities over pairs outside rc;
 (c) a series padded with zero top coefficients gives the bits of the
     unpadded one.
 
@@ -32,6 +39,7 @@ from neuralmelting_tpu_torch.models.lattice import make_supercell
 from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
+from neuralmelting_tpu_torch.sampler import cellmc as SCm
 
 R = 2
 # (lattice, constant, rc, stride, nsub, kcap): the LJ test geometry ((4,4,4)
@@ -41,7 +49,12 @@ GEOMS = {"lj": ("fcc", 2.0 ** (2.0 / 3.0), 1.5, 2, 16, 0),
 STAGES = ("bin", "rebin-x", "rebin-y", "rebin-z")
 
 
-def _binned(name):
+SHIFT = np.asarray([0.23, 0.61, 0.07], np.float32)
+
+
+def _port_binned(name):
+    """The seeded jittered fcc replicas of GEOMS[name], binned by the port:
+    (geom, pos, boxes, (x, y, z, ids), count)."""
     lattice, a0, rc, stride, nsub, kcap = GEOMS[name]
     pos, box = make_supercell(lattice, a0, 4)
     box = np.asarray(box, np.float32)
@@ -50,15 +63,23 @@ def _binned(name):
     pos = np.stack([(pos + jitter * g.standard_normal(pos.shape)) % box
                     for _ in range(R)]).astype(np.float32)
     boxes = np.repeat(box[None], R, 0)
-    kw = dict(nsub=nsub, stride=stride, kcap=kcap)
-    geom = CG.make_geom(box, rc, pos.shape[1], **kw)
-    gj = CM.make_geom(box, rc, pos.shape[1], **kw)
-    assert (geom.ncell, geom.kcap) == (gj.ncell, gj.kcap)
-    shift = np.asarray([0.23, 0.61, 0.07], np.float32)
+    geom = CG.make_geom(box, rc, pos.shape[1], nsub=nsub, stride=stride,
+                        kcap=kcap)
     x, y, z, ids, count, over = CG.bin_initial(
         geom, torch.as_tensor(pos), torch.as_tensor(boxes),
-        torch.as_tensor(shift))
+        torch.as_tensor(SHIFT))
     assert not bool(over)
+    return geom, pos, boxes, (x, y, z, ids), count
+
+
+def _binned(name):
+    _, _, rc, stride, nsub, kcap = GEOMS[name]
+    geom, pos, boxes, (x, y, z, ids), count = _port_binned(name)
+    box = boxes[0]
+    gj = CM.make_geom(box, rc, pos.shape[1], nsub=nsub, stride=stride,
+                      kcap=kcap)
+    assert (geom.ncell, geom.kcap) == (gj.ncell, gj.kcap)
+    shift = SHIFT
     jbin = [CM.bin_initial(gj, jnp.asarray(pos[r]), jnp.asarray(boxes[r]),
                            jnp.asarray(shift)) for r in range(R)]
     jslabs = tuple(jnp.stack([b[i] for b in jbin]) for i in range(4))
@@ -219,3 +240,112 @@ def test_zero_padded_series_keeps_its_bits(pot, which):
         pad[:c.shape[0]] = c
         got = CE.clenshaw(pad, a, b, x).numpy().view(np.uint32)
         np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the total kernels B1 and B4: counts derived from the slab, skipped terms
+# ---------------------------------------------------------------------------
+
+def _rescaled(slabs, side):
+    """A volume trial's _rescale of the three coordinate slabs at a seeded
+    scale per replica below (shrink) or above (grow) 1."""
+    g = np.random.default_rng(len(side))
+    lo, hi = (0.97, 0.995) if side == "shrink" else (1.005, 1.03)
+    sca = torch.as_tensor(g.uniform(lo, hi, (R, 1)).astype(np.float32))
+    return SCm._rescale(slabs[:3], sca) + (slabs[3],)
+
+
+@pytest.mark.parametrize("side", ["shrink", "grow"])
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_slots_packed_after_rescale(name, side):
+    geom, _, _, slabs, count = _port_binned(name)
+    _assert_packed(geom, _rescaled(slabs, side), count)
+
+
+def _derived_count(geom, x):
+    """Each cell's count as the total kernels derive it: the slots below
+    INVALID (ballot and popcount), and the first INVALID slot."""
+    v = x.reshape(R, geom.ncells, geom.kcap) < np.float32(0.1 * CG.INVALID)
+    pop = v.sum(dim=-1)
+    first = torch.where(v.all(dim=-1), geom.kcap,
+                        (~v).to(torch.int8).argmax(dim=-1))
+    return pop, first
+
+
+@pytest.mark.parametrize("stage", STAGES + ("rescale",))
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_kernel_count_equals_count(name, stage):
+    """Bin, then the rebins of ``stage`` (all three before a rescale),
+    then the rescale: the derived count is count in every cell."""
+    geom, _, boxes, slabs, count = _port_binned(name)
+    g = np.random.default_rng(13)
+    nrebin = 3 if stage == "rescale" else STAGES.index(stage)
+    for axis in range(nrebin):
+        delta = np.float32(g.uniform(0.2, 0.9) / geom.ncell[axis])
+        slabs, count, over = CG.rebin_axis(
+            geom, slabs, count, torch.as_tensor(boxes),
+            torch.as_tensor(delta), axis,
+            cell_tab=torch.as_tensor(CG.geom_tables(geom)[axis]))
+        assert not bool(over)
+    if stage == "rescale":
+        slabs = _rescaled(slabs, "shrink")
+    pop, first = _derived_count(geom, slabs[0])
+    assert torch.equal(pop.to(torch.int32), count.to(torch.int32))
+    assert torch.equal(first.to(torch.int32), count.to(torch.int32))
+    assert int((count == 0).sum()) < count.numel()
+
+
+def _dilute(stride, rc):
+    """R replicas of one atom a cell (K=8 slots, seven INVALID) near the
+    centre of cells 1.2 rc wide: every pair lies beyond 1.08 rc, so
+    beyond rc and beyond rc / s for s >= 0.97. Returns (geom, slabs,
+    params)."""
+    n = 4 if stride == 2 else 3
+    w = 1.2 * rc
+    geom = CG.make_geom(np.full(3, n * w), rc, n ** 3,
+                        nsub=8 if stride == 2 else 1, stride=stride, kcap=8)
+    assert geom.ncell == (n, n, n)
+    g = np.random.default_rng(stride)
+    first = (np.arange(geom.rows) % geom.kcap == 0)[None]
+    tabs = CG.geom_tables(geom)
+    slabs = tuple(torch.as_tensor(np.where(
+        first, (tabs[a][None] + 0.5 + g.uniform(-0.05, 0.05, (R, geom.rows)))
+        * w, CG.INVALID).astype(np.float32)) for a in range(3))
+    params = torch.as_tensor(np.concatenate(
+        [np.ones((R, 2)), np.full((R, 3), w), np.full((R, 3), n * w)],
+        1).astype(np.float32))
+    return geom, slabs, params
+
+
+def _plus_zero(t):
+    return bool((t == 0).all()) and not bool(torch.signbit(t).any())
+
+
+@pytest.mark.parametrize("s", [0.97, 1.03])
+@pytest.mark.parametrize("rc", [1.5, 2.5])
+def test_lj_total_terms_plus_zero_beyond_cutoffs(rc, s):
+    """total_plain's four sums over pairs with r^2 >= max(rc^2, rc^2/s^2)
+    (INVALID slots, r^2 = inf, included) are exactly +0, so B1 may leave
+    those pairs out of its list."""
+    geom, slabs, params = _dilute(2, rc)
+    pot3 = torch.tensor([1.0, 1.0, rc, 0.0])
+    out = CK.total_plain(geom, slabs, params, pot3, torch.full((R,), s))
+    assert _plus_zero(out)
+
+
+@pytest.mark.parametrize("virial", [False, True])
+@pytest.mark.parametrize("s", [0.97, 1.03])
+def test_eam_total_terms_plus_zero_outside_rc(pot, s, virial):
+    """B4's plain version over pairs with u = (r s)^2 >= rc^2: the pair
+    energy (phi), the pair virial (phi') and the embedding virial
+    ((F'_i + F'_j) 2u f_rho') are exactly +0, and so is every density."""
+    p, series, _ = pot
+    rc = float(np.sqrt(float(p.rc2)))
+    geom, slabs, params = _dilute(3, rc)
+    scal = torch.tensor([float(p.rc2), float(p.u_lo), float(p.u_hi),
+                         float(p.q_lo), float(p.q_hi), float(p.rho_hi), 0.0,
+                         0.0])
+    st, rho = CE.total_plain(geom, slabs, params, scal, series,
+                             torch.full((R,), s), virial)
+    assert _plus_zero(st[:, [2, 5, 6]]) and _plus_zero(rho)
+    assert bool(torch.isfinite(st).all())
