@@ -50,30 +50,52 @@ Phases, in order (any failed check exits non-zero):
                    the virial pressure, and T_m of one classifier
                    trained on either side's features, each within 4
                    standard errors; diag 0 and T_m inside the grid.
-  Serial path (kernel B5 lj_delta) and the probe (kernel P1):
-  10. serial-small — B5 against its plain version, dE and dW, at the JAX
-                   kernel test's shapes (R=1, N=256, M=4; R=2, N=108, M=2);
-  11. serial-full  — the same at the serial engine's own launch (R=1,
-                   N=256, M=1) and batched at BASELINE config 2's shape
-                   (R=64 replicas of 4096 perturbed fcc atoms, M=32, rc
-                   2.5), with CUDA-event times and the bound;
-  12. golden      — BASELINE config 1 (tests/make_golden.py) through the
+  Serial path (kernel B5 lj_delta: the run kernel, position_run, and the
+  batched one, delta_moves) and the probe (kernel P1):
+  10. serial-small — batched B5 against its plain version, dE and dW, at
+                   the JAX kernel test's shapes (R=1, N=256, M=4; R=2,
+                   N=108, M=2);
+  11. serial-full  — the same at one attempt's launch (R=1, N=256, M=1)
+                   and batched at BASELINE config 2's shape (R=64
+                   replicas of 4096 perturbed fcc atoms, M=32, rc 2.5),
+                   with CUDA-event times and the bound;
+  12. serial-run   — one config-1 sweep's runs of position attempts, from
+                   one state, through position_run (one launch a run) and
+                   through moves.position with brute_backend() (one
+                   batched launch an attempt): positions, pe, virial,
+                   decisions and weights bit for bit equal; against
+                   position_run_plain on the CPU, decisions equal up to a
+                   rounding tie (margin < 1e-4); then a run of 256
+                   attempts at N=4096 (48 KB of shared memory), bit for
+                   bit against the per-attempt launches; times per launch
+                   and per attempt, and the bound summed over the run;
+  13. golden      — BASELINE config 1 (tests/make_golden.py) through the
                    port's serial engine on the default device (the card),
-                   B5's counter zeroed before and read after: it must equal
-                   the position attempts; records and frames held to the
-                   committed tests/golden/config1.* (the JAX package's run)
-                   and every decision to the port's own CPU run of it;
-                   seconds per sweep and attempted moves/s;
-  13. golden-hmc  — tests/test_golden.py's HMC case (32 atoms, ppos 0.7,
+                   B5's counters zeroed before and read after: launches
+                   must equal the runs of position attempts, attempts
+                   through the run kernel the position attempts; records
+                   and frames held to the committed tests/golden/config1.*
+                   (the JAX package's run) and every decision to the
+                   port's own CPU run of it; seconds per sweep, attempted
+                   moves/s, and one sweep under torch.profiler;
+  14. golden-hmc  — tests/test_golden.py's HMC case (32 atoms, ppos 0.7,
                    pvol 0.05, seed 9) on the card against the port's CPU
                    run: acceptance ratios equal, positions within 1e-2;
-  14. probe       — every P1 variant against its plain version, then the
-                   per-variant timing (python -m neuralmelting_tpu_torch.probe).
+  15. probe       — every P1 variant against its plain version at REPS
+                   passes, then the per-variant timing at the passes that
+                   make a launch last >= 1 ms (python -m
+                   neuralmelting_tpu_torch.probe), each variant held to its
+                   plain version again at those passes, with its SASS
+                   counts a pass and both shares.
 
 The last lines are the card's name and power limit (nvidia-smi), the
 kernels' JSON line (each kernel's launches on its path's main run, error
 against its plain version, CUDA-event ms of kernel and plain version at
-full width, and the least time the card could take for that work,
+full width (B5's run kernel: device ms a launch over config 1's runs,
+its launches golden's; batched B5, off the main path: device ms at R=64,
+its launches serial-run's per-attempt path's; P1: device ms of pair_div
+at its timing passes, its launches the probe phase's), and the least
+time the card could take for that work,
 bound_ms, from its bytes over 3.35 TB/s or its f32 operations over
 67 TFLOP/s, whichever is larger; B3's and B4's entries also carry
 chunk_kcap and chunk_ms, the time at the chunks' K, B4's also ms_virial,
@@ -93,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -116,10 +139,11 @@ from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
 from neuralmelting_tpu_torch.ops import lj_delta as LD
-from neuralmelting_tpu_torch.ops.energy import min_image
+from neuralmelting_tpu_torch.ops.energy import min_image, pair_energy_virial
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.profile_chunk import configs
 from neuralmelting_tpu_torch.sampler import cellmc as SC
+from neuralmelting_tpu_torch.sampler import moves, serial
 
 DEV = torch.device("cuda")
 FULL = configs()     # LJ north star, EAM eambench: 4096 atoms each
@@ -138,9 +162,13 @@ KERNELS = {
         name="cellmc_eam_total (B4)", route="cuda",
         source="neuralmelting_tpu_torch/csrc/cellmc_eam_total.cu",
         replaces="neuralmelting_tpu/ops/pallas/cellmc_eam.py:351"),
-    "delta": dict(name="lj_delta (B5)", route="cuda",
+    "delta": dict(name="lj_delta position_run (B5)", route="cuda",
                   source="neuralmelting_tpu_torch/csrc/lj_delta.cu",
                   replaces="neuralmelting_tpu/ops/pallas/lj_kernel.py:64"),
+    "delta_batched": dict(
+        name="lj_delta delta_moves (B5, batched)", route="cuda",
+        source="neuralmelting_tpu_torch/csrc/lj_delta.cu",
+        replaces="neuralmelting_tpu/ops/pallas/lj_kernel.py:64"),
     "probe": dict(name="vpu_probe pair_div (P1)", route="cuda",
                   source="neuralmelting_tpu_torch/csrc/vpu_probe.cu",
                   replaces="scripts/vpu_probe.py:39"),
@@ -479,8 +507,11 @@ def kernel_name(mangled):
         return mangled
     n = int(m.group(2))
     tail = mangled[m.end() + n:]
-    # a template kernel over one bool: ILb0E / ILb1E
+    # a template kernel over one bool (ILb0E / ILb1E) or int (ILi6EE)
     targ = {"ILb0E": "<false>", "ILb1E": "<true>"}.get(tail[:5], "")
+    t = re.match(r"ILi(\d+)E", tail)
+    if t:
+        targ = f"<{t.group(1)}>"
     return f"{m.group(1)}.cu {mangled[m.end():m.end() + n]}{targ}"
 
 
@@ -1075,7 +1106,8 @@ def compare_b5(pot, case, tag):
         check(bool((err <= B5_RTOL * mag + 1e-6).all()),
               f"[{tag}] B5 {nm} disagrees with its plain version")
         check(bool(torch.isfinite(k).all()), f"[{tag}] B5 {nm} not finite")
-    ERR["delta"] = max(ERR["delta"], float((dek - dep).abs().max()))
+    ERR["delta_batched"] = max(ERR["delta_batched"],
+                               float((dek - dep).abs().max()))
     return n_in
 
 
@@ -1102,8 +1134,7 @@ def phase_serial_full(name):
     ms1 = P1.device_ms(lambda: LD.delta_moves(pot, *case), 200, "delta_")
     ev1 = cuda_ms(lambda: LD.delta_moves(pot, *case), 200)
     pms1 = cuda_ms(lambda: LD.delta_moves_plain(pot, *case), 50)
-    TIMES["delta"] = (ms1, pms1)
-    BOUND["delta"] = b5_bound(1, 256, 1, n_in)
+    b1, by1 = b5_bound(1, 256, 1, n_in)
     # batched: BASELINE config 2's 8x8 grid of 4096-atom LJ, 32 movers each
     big = b5_case(64, (16, 8, 8), 32, 3, lattice=lat, jitter=0.03, step=0.1)
     n_in_big = compare_b5(pot, big, "serial-full")
@@ -1111,12 +1142,177 @@ def phase_serial_full(name):
     ev = cuda_ms(lambda: LD.delta_moves(pot, *big), 20)
     pms = cuda_ms(lambda: LD.delta_moves_plain(pot, *big), 3)
     bms, by = b5_bound(64, 4096, 32, n_in_big)
+    TIMES["delta_batched"] = (ms, pms)
+    BOUND["delta_batched"] = (bms, by)
     log(f"[serial-full] B5 R=1 N=256 M=1: kernel {ms1:.4f} ms on the "
         f"device ({ev1:.4f} ms per call as issued), plain {pms1:.4f} ms, "
-        f"bound {BOUND['delta'][0]:.6f} ms ({BOUND['delta'][1]}); R=64 "
+        f"bound {b1:.6f} ms ({by1}); R=64 "
         f"N=4096 M=32: kernel {ms:.4f} ms on the device ({ev:.4f} as "
         f"issued), plain {pms:.4f} ms, bound {bms:.6f} ms ({by}), "
         f"{n_in_big} terms inside rc (after warm-up) on {name}")
+
+
+def recording_backend(runs):
+    """brute_backend() whose position_run also keeps each run's draws
+    (ids, disp, ln u, nbeta), as the sweep hands them over."""
+    be = moves.brute_backend()
+
+    def position_run(pot, pos, box, ids, disp, ln_u, nbeta, pe, virial):
+        runs.append(tuple(t.clone() for t in (ids, disp, ln_u, nbeta)))
+        return be.position_run(pot, pos, box, ids, disp, ln_u, nbeta, pe,
+                               virial)
+
+    return moves.EnergyBackend(be.total, be.delta_move, be.forces,
+                               position_run)
+
+
+def chain_of(pos, box, pe, virial):
+    """A copy of one chain's state, as moves.position takes it."""
+    return SimpleNamespace(pos=pos.clone(), box=box.clone(), pe=pe.clone(),
+                           virial=virial.clone())
+
+
+def apply_runs(pot, chain, runs, per_attempt=False, run=LD.position_run):
+    """Apply the runs to ``chain`` in order: one ``run`` call each, or
+    (per_attempt) one moves.position call, one batched B5 launch, an
+    attempt. Returns (acc, weight), each over all attempts, and per
+    attempt the (mover, atom, side) terms inside rc when per_attempt."""
+    be = moves.brute_backend()
+    acc, wgt, n_in = [], [], []
+    for ids, disp, lnu, nbeta in runs:
+        if not per_attempt:
+            ok, w = run(pot, chain.pos, chain.box, ids, disp, lnu, nbeta,
+                        chain.pe, chain.virial)
+            acc.append(ok)
+            wgt.append(w)
+            continue
+        for k, i in enumerate(ids.tolist()):
+            old = chain.pos[i].reshape(1, 1, 3)
+            case = (chain.pos[None], chain.box[None], ids[k].reshape(1, 1),
+                    old, old + disp[k])
+            n_in.append(b5_terms(pot, case)[2])
+            ok, w = moves.position(pot, be, chain, nbeta, i, ids[k],
+                                   disp[k], lnu[k])
+            acc.append(ok.reshape(1))
+            wgt.append(w.reshape(1))
+    return torch.cat(acc), torch.cat(wgt), n_in
+
+
+def run_bound(n, nacc, n_in):
+    """Least ms of a run of len(n_in) attempts at N atoms: each attempt's
+    B5 operations, the run's bytes (pos, box, 20 B of draws an attempt,
+    nbeta, pe, virial in; acc and weight, pe, virial and the accepted
+    positions out)."""
+    a = len(n_in)
+    nbytes = 12 * n + 12 + 20 * a + 12 + 5 * a + 8 + 12 * nacc
+    return bound(nbytes, sum(2 * (n - 1) * OPS_B5_PAIR + k * OPS_B5_IN
+                             for k in n_in))
+
+
+def same_bits(x, y):
+    if x.dtype == torch.float32:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return torch.equal(x, y)
+
+
+def compare_runs(pot, start, runs, tag):
+    """Hold position_run to the per-attempt path from one start state, bit
+    for bit; returns (acc, the per-attempt path's terms inside rc)."""
+    ka = chain_of(*start)
+    LD.reset_launches()
+    acc_k, w_k, _ = apply_runs(pot, ka, runs)
+    nrun = LD.LAUNCHES["delta"]
+    natt = LD.LAUNCHES["delta_attempts"]
+    kb = chain_of(*start)
+    LD.reset_launches()
+    acc_b, w_b, n_in = apply_runs(pot, kb, runs, per_attempt=True)
+    torch.cuda.synchronize()
+    check(nrun == len(runs) and natt == len(acc_b)
+          and LD.LAUNCHES["delta"] == len(acc_b),
+          f"[{tag}] {nrun} launches, {natt} attempts for {len(runs)} runs "
+          f"of {len(acc_b)} attempts; {LD.LAUNCHES['delta']} per-attempt "
+          f"launches")
+    for nm, x, y in (("acc", acc_k, acc_b), ("weight", w_k, w_b),
+                     ("pos", ka.pos, kb.pos), ("pe", ka.pe, kb.pe),
+                     ("virial", ka.virial, kb.virial)):
+        check(same_bits(x, y), f"[{tag}] position_run's {nm} differs from "
+              f"the per-attempt B5 launches")
+    log(f"[{tag}] {len(runs)} runs of {len(acc_b)} attempts "
+        f"({int(acc_k.sum())} accepted) at N={start[0].shape[0]}: pos, pe, "
+        f"virial, acc and weight bit for bit equal to {len(acc_b)} "
+        f"per-attempt B5 launches")
+    return ka, acc_k, w_k, n_in
+
+
+def phase_serial_run(name):
+    pot, state, sweep = GOLD.setup_chain(DEV)
+    start = (state.pos, state.box, state.pe, state.virial)
+    runs = []
+    serial.make_sweep_fn(1.0, 1.0, recording_backend(runs), 0.96875,
+                         0.03125, 16, 1.0)(pot, GOLD.setup_chain(DEV)[1])
+    ka, acc_k, w_k, n_in = compare_runs(pot, start, runs, "serial-run")
+    # batched B5 is off the main path: its launches are the per-attempt
+    # path's, one an attempt
+    KERNELS["delta_batched"]["launches"] = len(n_in)
+    # against the plain version on the CPU: decisions up to a rounding tie
+    kc = chain_of(*(t.cpu() for t in start))
+    cpu_runs = [tuple(t.cpu() for t in r) for r in runs]
+    acc_c, _, _ = apply_runs(pot, kc, cpu_runs)
+    diff = torch.nonzero(acc_c != acc_k.cpu()).reshape(-1)
+    lnu = torch.cat([r[2] for r in runs])
+    if len(diff):
+        a = int(diff[0])
+        mk = float((lnu[a] - w_k[a]).abs())
+        check(mk < 1e-4, f"[serial-run] decision {a} differs from the CPU's "
+              f"at margin {mk:.3e} (not a rounding tie)")
+        log(f"[serial-run] first decision that differs from "
+            f"position_run_plain on the CPU: attempt {a}, margin {mk:.3e}")
+    else:
+        log(f"[serial-run] every decision equals position_run_plain on the "
+            f"CPU; pe {float(ka.pe):.6f} on the card, {float(kc.pe):.6f} on "
+            f"the CPU")
+    # times: the sweep's runs replayed on a copy, per launch and attempt
+    work = chain_of(*start)
+    replay = lambda: apply_runs(pot, work, runs)          # noqa: E731
+    dev_ms = P1.device_ms(replay, 20, "delta_run")        # per launch
+    ev_ms = cuda_ms(replay, 20)                           # per replay
+    plain = chain_of(*start)
+    pms = cuda_ms(lambda: apply_runs(pot, plain, runs,
+                                     run=LD.position_run_plain), 2)
+    npos = len(n_in)
+    bms, by = run_bound(256, int(acc_k.sum()), n_in)
+    TIMES["delta"] = (dev_ms, pms / len(runs))
+    BOUND["delta"] = (bms / len(runs), by)
+    log(f"[serial-run] config 1's {len(runs)} runs ({npos} attempts): "
+        f"{dev_ms:.4f} ms a launch on the device, "
+        f"{dev_ms * len(runs) / npos * 1e3:.3f} us an attempt; "
+        f"{ev_ms:.4f} ms the runs as issued; plain {pms:.3f} ms; bound "
+        f"{bms:.6f} ms ({by}) summed over the runs, "
+        f"{100 * bms / (dev_ms * len(runs)):.2f}% of the device time, on "
+        f"{name}")
+    # a run of 256 attempts at N=4096: 48 KB of shared memory
+    lat = 2.0 ** (2.0 / 3.0)
+    pos, box, _, _, _ = b5_case(1, (16, 8, 8), 1, 4, lattice=lat,
+                                jitter=0.03)
+    pos, box = pos[0].contiguous(), box[0].contiguous()
+    pe, vir = pair_energy_virial(pot, pos, box)
+    g = np.random.default_rng(5)
+    big = [(torch.as_tensor(g.integers(0, 4096, 256).astype(np.int32),
+                            device=DEV),
+            torch.as_tensor(g.uniform(-0.12, 0.12, (256, 3))
+                            .astype(np.float32), device=DEV),
+            torch.as_tensor(np.log(g.uniform(1e-6, 1.0, 256))
+                            .astype(np.float32), device=DEV),
+            torch.tensor(-1.0 / 0.8, dtype=torch.float32, device=DEV))]
+    _, acc_b, _, n_in_b = compare_runs(pot, (pos, box, pe, vir), big,
+                                       "serial-run")
+    work = chain_of(pos, box, pe, vir)
+    ms_b = P1.device_ms(lambda: apply_runs(pot, work, big), 5, "delta_run")
+    bms_b, by_b = run_bound(4096, int(acc_b.sum()), n_in_b)
+    log(f"[serial-run] N=4096, 256 attempts ({12 * 4096} B of shared "
+        f"memory): {ms_b:.4f} ms a launch on the device, "
+        f"{ms_b / 256 * 1e3:.3f} us an attempt, bound {bms_b:.6f} ms "
+        f"({by_b}) on {name}")
 
 
 def golden_records(recs, frames, nrec, tag):
@@ -1168,6 +1364,7 @@ def phase_golden(name):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = LD.LAUNCHES["delta"]
+    attempts = LD.LAUNCHES["delta_attempts"]
     KERNELS["delta"]["launches"] = launches
     check(recs.pe.device.type == "cuda", "[golden] did not run on the card")
     # every decision against the port's CPU run (tier-1 holds that run to
@@ -1177,14 +1374,20 @@ def phase_golden(name):
     GOLD.run_chain("cpu", trace=tr_c)
     nsw = len(tr_k)
     npos = sum(int((mt == 0).sum()) for mt, _, _ in tr_k)
+    nruns = sum(t == serial.POS for mt, _, _ in tr_k
+                for t, _, _ in serial.attempt_runs(mt.tolist()))
     margin = min(float(m.abs().min()) for _, _, m in tr_k)
     log(f"[golden] config 1: {nsw} sweeps of {n} attempts in {secs:.3f} s, "
-        f"{secs / nsw * 1e3:.2f} ms per sweep, {nsw * n / secs:.4e} "
-        f"attempted moves/s on {name}; B5 launches {launches}, position "
-        f"attempts {npos}; smallest decision margin |ln u - ln w| "
+        f"{secs / nsw * 1e3:.2f} ms per sweep (106.01 with one B5 launch "
+        f"an attempt), {nsw * n / secs:.4e} attempted moves/s on "
+        f"{name}; B5 launches {launches} for {nruns} runs of position "
+        f"attempts, attempts through the run kernel {attempts} for {npos} "
+        f"position attempts; smallest decision margin |ln u - ln w| "
         f"{margin:.3e}")
-    check(launches == npos, f"[golden] B5 launched {launches} times for "
-          f"{npos} position attempts")
+    check(launches == nruns, f"[golden] B5 launched {launches} times for "
+          f"{nruns} runs of position attempts")
+    check(attempts == npos, f"[golden] {attempts} attempts went through "
+          f"the run kernel for {npos} position attempts")
     check(torch.equal(recs.acc_pos, recs_k.acc_pos)
           and torch.equal(recs.acc_vol, recs_k.acc_vol),
           "[golden] the traced run made other decisions")
@@ -1207,11 +1410,29 @@ def phase_golden(name):
     profile_sweep(name)
 
 
+def kernel_label(key):
+    """A short name of a profiler kernel key: an elementwise kernel's
+    functor or implementing function, else the kernel's own name."""
+    for pat in (r"(\w*Functor\w*)<", r"::(\w+_(?:kernel_impl|kernel_cuda))\b"):
+        found = re.findall(pat, key)
+        if found:
+            return found[-1]
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].split("<")[0].strip()
+
+
 def profile_sweep(name):
     """One config-1 sweep on the card under torch.profiler, after one
-    warm-up sweep: wall, device busy and idle share, kernels per attempt."""
+    warm-up sweep: wall, device busy and idle share, kernels per attempt,
+    and the most frequent kernels."""
     from torch.profiler import ProfilerActivity, profile
     pot, state, sweep = GOLD.setup_chain(DEV)
+    # a traced twin of the same key gives the profiled sweep's move types
+    # (the trace's margins would add device ops to the profiled sweep)
+    trace = []
+    _, twin, twin_sweep = GOLD.setup_chain(DEV, trace=trace)
+    for _ in range(2):
+        twin_sweep(pot, twin)
     sweep(pot, state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1221,6 +1442,7 @@ def profile_sweep(name):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     busy = kernels = b5 = 0.0
+    by_name = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1230,14 +1452,41 @@ def profile_sweep(name):
             continue
         busy += t
         kernels += ev.count
+        c, tt = by_name.get(kernel_label(ev.key), (0, 0.0))
+        by_name[kernel_label(ev.key)] = (c + ev.count, tt + t)
         if "delta_" in ev.key:
             b5 += t
     n = state.pos.shape[0]
+    mt = trace[-1][0].tolist()
+    nruns = sum(t == serial.POS for t, _, _ in serial.attempt_runs(mt))
     check(busy > 0, "[golden] the profiler saw no device time")
-    log(f"[golden] one sweep under torch.profiler: wall {wall:.3f} ms, "
-        f"device busy {busy:.3f} ms (B5 {b5:.3f} ms), idle share "
-        f"{1.0 - busy / wall:.4f}, {kernels / n:.1f} device operations per "
-        f"attempt on {name}")
+    log(f"[golden] one sweep under torch.profiler ({nruns} runs of position "
+        f"attempts, {mt.count(serial.VOL)} volume trials): wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms (B5 {b5:.3f} ms), idle "
+        f"share {1.0 - busy / wall:.4f} (0.9605 with one B5 launch an "
+        f"attempt), {kernels / n:.2f} device operations per attempt (20.7) "
+        f"on {name}")
+    log("[golden] its most frequent kernels (launches, device ms): "
+        + "; ".join(f"{k} {c}, {t:.3f}" for k, (c, t) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:8]))
+    # the host's side of one more sweep: the port's functions by their
+    # cumulative time (cProfile; its own cost inflates the wall)
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.enable()
+    sweep(pot, state)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t) * 1e3
+    rows = sorted(((ct * 1e3, nc, f"{os.path.basename(fn)}:{func}")
+                   for (fn, _, func), (_, nc, _, ct, _)
+                   in pstats.Stats(prof).stats.items()
+                   if "neuralmelting_tpu_torch" in fn), reverse=True)
+    log(f"[golden] one more sweep under cProfile, {wall:.1f} ms: the port's "
+        f"functions by cumulative ms (calls): "
+        + "; ".join(f"{f} {ms:.1f} ({nc})" for ms, nc, f in rows[:10]))
 
 
 def phase_golden_hmc(name):
@@ -1261,37 +1510,81 @@ def phase_golden_hmc(name):
     check(dx <= 1e-2, f"[golden-hmc] positions differ by {dx}")
 
 
-def phase_probe(name):
-    a, b = P1.inputs(DEV)
+def sm_clocks(fn):
+    """(fn(), (median, min, max, maximum) SM clock in MHz sampled by
+    nvidia-smi every 50 ms while fn runs)."""
+    q = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"]
+    with tempfile.TemporaryFile("w+") as f:
+        proc = subprocess.Popen(q + ["-lms", "50"], stdout=f, text=True)
+        try:
+            out = fn()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+        f.seek(0)
+        rows = [[int(x) for x in line.split(",")]
+                for line in f.read().split("\n") if line.strip()]
+    check(len(rows) > 0, "[probe] nvidia-smi sampled no clock")
+    sm = sorted(r[0] for r in rows)
+    return out, (sm[len(sm) // 2], sm[0], sm[-1], rows[0][1])
+
+
+def compare_probe(a, b, passes):
+    """Every P1 variant at ``passes[variant]`` passes against its plain
+    version; max |kernel - plain| by variant."""
     errs = {}
-    for v in P1.VARIANTS:
+    for v, reps in passes.items():
         dt = P1.dtype_of(v)
         av, bv = a.to(dt), b.to(dt)
-        k, p = P1.probe(v, av, bv), P1.probe_plain(v, av, bv)
+        k, p = P1.probe(v, av, bv, reps), P1.probe_plain(v, av, bv, reps)
         torch.cuda.synchronize()
         errs[v] = float((k - p).abs().max())
         rel = errs[v] / float(p.abs().max())
         check(bool(torch.isfinite(k).all()) and rel <= PROBE_TOL.get(v, 1e-6),
-              f"[probe] {v}: rel err {rel:.3e} against the plain version")
-    ERR["probe"] = errs["pair_div"]
-    log("[probe] max |kernel - plain| by variant: "
+              f"[probe] {v} at {reps} passes: rel err {rel:.3e} against the "
+              f"plain version")
+    return errs
+
+
+def phase_probe(name):
+    check(P1.UNROLL == _build.load().nm_vpu_probe_unroll(),
+          "[probe] probe.UNROLL is not the kernels' kUnroll")
+    a, b = P1.inputs(DEV)
+    errs = compare_probe(a, b, dict.fromkeys(P1.VARIANTS, P1.REPS))
+    log(f"[probe] max |kernel - plain| by variant at {P1.REPS} passes: "
         + ", ".join(f"{v} {e:.2e}" for v, e in errs.items())
         + " (limit, relative to max |plain|: 1e-6; 1e-4 for rcp.approx and "
         "rsqrtf; 2^-5 for bf16)")
-    plain_ms = cuda_ms(lambda: P1.probe_plain("pair_div", a, b), 2)
     P1.reset_launches()
-    res = P1.measure(DEV)
+    res, clocks = sm_clocks(lambda: P1.measure(DEV))
     KERNELS["probe"]["launches"] = P1.LAUNCHES["probe"]
+    log(f"[probe] SM clock while timing (nvidia-smi every 50 ms): median "
+        f"{clocks[0]} MHz, range {clocks[1]}-{clocks[2]} MHz, of a maximum "
+        f"{clocks[3]} MHz")
+    errs = compare_probe(a, b, {v: r["reps"] for v, r in res.items()})
+    ERR["probe"] = errs["pair_div"]
+    log("[probe] max |kernel - plain| by variant at its timing passes: "
+        + ", ".join(f"{v} {e:.2e} ({res[v]['reps']})"
+                    for v, e in errs.items()))
+    sass = P1.sass_counts()
+    reps = res["pair_div"]["reps"]
+    plain_ms = cuda_ms(lambda: P1.probe_plain("pair_div", a, b, reps), 1)
     TIMES["probe"] = (res["pair_div"]["ms"], plain_ms)
-    pairs = P1.ROWS * P1.LANES * P1.REPS
     BOUND["probe"] = bound(4 * 3 * P1.ROWS * P1.LANES,
-                           P1.OPS["pair_div"] * pairs)
+                           P1.OPS["pair_div"] * P1.ROWS * P1.LANES * reps)
     for v, r in res.items():
-        log(f"[probe] {v:14s} {r['ms']:.4f} ms per launch on the device "
-            f"({r['event_ms']:.4f} ms as issued, {r['launches']} launches), "
-            f"{r['ns_per_pair']:.5f} ns per pair, "
-            f"{r['ops_per_pair']} f32 ops per pair, "
-            f"{100 * r['share_f32_peak']:.2f}% of 67 TFLOP/s on {name}")
+        c = sass[v]
+        log(f"[probe] {v:14s} {r['reps']} passes: {r['ms']:.4f} ms per "
+            f"launch on the device ({r['event_ms']:.4f} ms as issued, "
+            f"{r['launches']} launches; {r['ms_at_reps']:.4f} ms at "
+            f"{P1.REPS} passes), {r['ns_per_pair']:.6f} ns per pair, "
+            f"{r['ops_per_pair']} ops per pair; SASS a pass {c['arith']:.3f} "
+            f"arithmetic + {c['other']:.3f} other instructions; "
+            f"{100 * r['share_f32_peak']:.2f}% of 67 TFLOP/s, "
+            f"{100 * r['share_issue']:.2f}% of the -fmad=false issue "
+            f"ceiling ({67 * P1.issue_ceiling(v):.1f} TFLOP/s); SASS bound "
+            f"{100 * c['ceiling']:.2f}% of 67 TFLOP/s on {name}")
 
 
 def main():
@@ -1313,6 +1606,7 @@ def main():
               ("eam-physics", lambda: phase_eam_physics(name, table)),
               ("serial-small", phase_serial_small),
               ("serial-full", lambda: phase_serial_full(name)),
+              ("serial-run", lambda: phase_serial_run(name)),
               ("golden", lambda: phase_golden(name)),
               ("golden-hmc", lambda: phase_golden_hmc(name)),
               ("probe", lambda: phase_probe(name)))

@@ -66,8 +66,17 @@ _SIGNATURES = {
     # pos, box, ids, old_r, new_r, out, R, N, M, sig2, rc2, 4 eps,
     # 24 eps, stream
     "nm_lj_delta": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P],
-    # variant, a, b, out, n, sig2, rc2, stream
-    "nm_vpu_probe": [_I] + [_P] * 3 + [_I] + [_F] * 2 + [_P],
+    # pos, box, ids, disp, ln_u, nbeta, pe, virial, acc, weight, N, A,
+    # sig2, rc2, 4 eps, 24 eps, stream
+    "nm_lj_delta_run": [_P] * 10 + [_I] * 2 + [_F] * 4 + [_P],
+    # N -> dynamic shared memory bytes of either B5 kernel
+    "nm_lj_delta_smem": [_I],
+    # -> static shared memory bytes of the B5 kernels (the larger)
+    "nm_lj_delta_static_smem": [],
+    # variant, a, b, scales, out, n, reps, sig2, rc2, stream
+    "nm_vpu_probe": [_I] + [_P] * 4 + [_I] * 2 + [_F] * 2 + [_P],
+    # -> passes an iteration of the probe's pass loop
+    "nm_vpu_probe_unroll": [],
 }
 
 _lib = None

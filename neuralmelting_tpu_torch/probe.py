@@ -3,32 +3,41 @@
     python -m neuralmelting_tpu_torch.probe        # on the card
 
 Counterpart of ``scripts/vpu_probe.py`` (the Pallas probe kernels of
-``make_kernel``). Each variant of ``VARIANTS`` runs REPS = 64 passes of
-the LJ pair op mix over two (2048, 128) blocks and accumulates (the
-variants are described in ``csrc/vpu_probe.cu``). ``probe`` launches the
-CUDA kernel; ``probe_plain`` is its plain PyTorch version, with an exact
+``make_kernel``). Each variant of ``VARIANTS`` runs ``reps`` passes (the
+script's REPS = 64 by default) of the LJ pair op mix over two (2048, 128)
+blocks and accumulates (the variants are described in
+``csrc/vpu_probe.cu``). ``probe`` launches the CUDA kernel, a persistent
+launch; ``probe_plain`` is its plain PyTorch version, with an exact
 reciprocal or reciprocal square root where the kernel approximates, for
-CPU tensors, the tests and ``chip_smoke.py``. ``LAUNCHES["probe"]``
-counts kernel launches only.
+CPU tensors, the tests and ``chip_smoke.py``. Pass i scales by s_i = 1 +
+1e-6 i in f32 (``scales``), rounded once to bf16 in the bf16 variants.
+``LAUNCHES["probe"]`` counts kernel launches only.
 
-``measure`` times every variant over enough launches for at least 10 ms
-(CUDA events; torch.profiler for each launch's device time, since a
-launch takes less time on the card than the host needs to issue it) and
-reports ns per pair evaluation, the f32 operations per
-pair counted from the code (``OPS``: adds, multiplies, divides and
-approximate reciprocals or square roots, one each; compares, selects and
-the kernels' two shared-memory operand loads a pass not counted), and
-the share of the card's 67 TFLOP/s f32 peak (NVIDIA's H100 SXM data
-sheet, no tensor cores) that this reaches. The kernels are built with
--fmad=false, as every kernel of the port: the probe measures the op mix
-as the port's kernels compile it, with no contracted multiply-add, so a
-share near 50% would be the f32 issue ceiling of such code (a bf16x2
-instruction does two pairs' operation, so 100% for the bf16 variants).
+``measure`` times every variant at a ``reps`` where one launch lasts at
+least 1 ms (found from a launch at REPS), so that a fixed ramp a launch
+weighs at most ~2%, over at least 10 ms of launches (CUDA events; the
+launch's device time from torch.profiler), and reports ns per pair
+evaluation, the f32 operations per pair counted from the code (``OPS``:
+adds, multiplies, divides and approximate reciprocals or square roots,
+one each; compares and selects not counted) and two shares of what this
+reaches: of the card's 67 TFLOP/s f32 peak (NVIDIA's H100 SXM data
+sheet, no tensor cores, an FMA counted as two operations), and of the
+issue ceiling of code built with -fmad=false, as every kernel of the
+port is (``issue_ceiling``): one operation an FP32 instruction, 50% of
+that peak (a bf16x2 instruction does two pairs' operation, so 100% for
+the bf16 variants).
+``sass_counts`` reads each variant's pass loop from ``cuobjdump -sass``
+of the built library: its arithmetic instructions (FP32, or bf16x2) and
+its other instructions a pass, whose sum sets the ceiling 50% x OPS /
+(instructions a pass) that the variant can reach.
 """
 
 from __future__ import annotations
 
 import math
+import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +54,14 @@ OPS = {"div": 17, "recip": 21, "recip0": 18, "rsqrt": 19, "nodiv": 18,
 F32_PEAK = 67e12
 SIG2, RC2 = 1.0, 6.25
 LAUNCHES = {"probe": 0}
+# passes an iteration of the kernels' pass loop (csrc/vpu_probe.cu
+# kUnroll): a kernel's reps is a multiple of it
+UNROLL = 8
+# least device time of one timed launch
+MIN_LAUNCH_MS = 1.0
+# SASS opcodes of one f32 or bf16x2 operation of the mix
+ARITH_OPS = ("FADD", "FMUL", "FFMA", "MUFU", "HADD2", "HMUL2", "HFMA2")
+_SCALES = {}
 
 
 def reset_launches():
@@ -64,11 +81,36 @@ def inputs(device, seed=0):
             torch.as_tensor(b, device=device))
 
 
-def probe(variant, a, b):
-    """One launch of P1's ``variant`` on CUDA tensors: (ROWS, LANES) f32."""
+def scales(reps):
+    """(reps,) f32 numpy: s_i = 1 + 1e-6 i, as the script computes it."""
+    return np.float32(1.0) + np.float32(1e-6) * np.arange(reps,
+                                                          dtype=np.float32)
+
+
+def _scale_table(variant, reps, device):
+    """The kernel's table of s_i: f32, or for the bf16 variants s_i
+    rounded to bf16 in both halves of a 32-bit word."""
+    dt = dtype_of(variant)
+    key = (dt, reps, str(device))
+    if key not in _SCALES:
+        s = torch.as_tensor(scales(reps))
+        if dt == torch.bfloat16:
+            h = s.to(dt).view(torch.int16).numpy().view(np.uint16)
+            s = torch.as_tensor((h.astype(np.uint32) * 0x10001)
+                                .view(np.int32))
+        _SCALES[key] = s.to(device)
+    return _SCALES[key]
+
+
+def probe(variant, a, b, reps=REPS):
+    """One launch of P1's ``variant`` on CUDA tensors: (ROWS, LANES) f32;
+    ``reps`` a multiple of ``UNROLL``."""
     from neuralmelting_tpu_torch.ops import _build
     if a.device.type != "cuda":
         raise ValueError("the probe kernel runs on CUDA tensors")
+    if reps <= 0 or reps % UNROLL:
+        raise ValueError(f"reps {reps}: the kernel takes a positive "
+                         f"multiple of {UNROLL}")
     dt = dtype_of(variant)
     for name, t in (("a", a), ("b", b)):
         if t.dtype != dt or t.shape != (ROWS, LANES) or \
@@ -76,11 +118,12 @@ def probe(variant, a, b):
             raise ValueError(f"{name}: expected contiguous {dt} "
                              f"({ROWS}, {LANES}) on {a.device}")
     out = torch.empty((ROWS, LANES), dtype=torch.float32, device=a.device)
+    table = _scale_table(variant, reps, a.device)
     lib = _build.load()
     with torch.cuda.device(a.device):
         err = lib.nm_vpu_probe(VARIANTS.index(variant), a.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), a.numel(),
-                               SIG2, RC2,
+                               b.data_ptr(), table.data_ptr(),
+                               out.data_ptr(), a.numel(), reps, SIG2, RC2,
                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"P1 {variant} launch failed: CUDA error {err}")
@@ -88,7 +131,7 @@ def probe(variant, a, b):
     return out
 
 
-def probe_plain(variant, a, b):
+def probe_plain(variant, a, b, reps=REPS):
     """The plain PyTorch version of ``variant``: the same operations in
     the same order and type, with exact reciprocals and square roots."""
     dt = dtype_of(variant)
@@ -100,8 +143,8 @@ def probe_plain(variant, a, b):
 
     sig2 = a.new_full((), SIG2)     # a tensor: float / tensor is no divide
     acc = torch.zeros_like(a)
-    for i in range(REPS):
-        scale = c(np.float32(1.0) + np.float32(1e-6) * np.float32(i))
+    for scale in scales(reps):
+        scale = c(scale)
         d0 = a - b * scale
         d1 = a * c(0.5) - b
         d2 = a - c(0.5) * b
@@ -190,36 +233,141 @@ def device_ms(fn, calls, match):
     return total / count / 1e3
 
 
+def issue_ceiling(variant):
+    """The share of 67 TFLOP/s at one operation an instruction and one
+    instruction a cycle: 50% in f32, 100% in bf16x2 (two pairs an
+    instruction)."""
+    return 1.0 if dtype_of(variant) == torch.bfloat16 else 0.5
+
+
+def timing_reps(variant, a, b):
+    """(reps, device ms of a launch at REPS): the multiple of UNROLL at
+    which a launch should last MIN_LAUNCH_MS, scaled from REPS with a
+    tenth to spare."""
+    ms = device_ms(lambda: probe(variant, a, b), 20, "probe_")
+    per = MIN_LAUNCH_MS * 1.1 * REPS / ms
+    return UNROLL * max(1, math.ceil(per / UNROLL)), ms
+
+
 def measure(device="cuda"):
-    """Per variant: dict(ms, launches, ns_per_pair, ops_per_pair,
-    share_f32_peak, event_ms): ``ms`` is the kernel's device time per
-    launch (torch.profiler over the timed launches' count), ``event_ms``
-    the CUDA-event time per launch as issued back to back (at least
-    10 ms in all; below ~20 us per launch that is the host's issue
-    time). Launches are counted in ``LAUNCHES``."""
+    """Per variant: dict(reps, ms, launches, ns_per_pair, ops_per_pair,
+    share_f32_peak, share_issue, event_ms, ms_at_reps): ``ms`` is the
+    kernel's device time per launch at ``reps`` (torch.profiler over the
+    timed launches' count), at least MIN_LAUNCH_MS, ``event_ms`` the
+    CUDA-event time per launch as issued back to back (at least 10 ms in
+    all), ``ms_at_reps`` one launch's device time at REPS. Launches are
+    counted in ``LAUNCHES``."""
     a, b = inputs(device)
-    pairs = ROWS * LANES * REPS
     out = {}
     for v in VARIANTS:
         dt = dtype_of(v)
         av, bv = a.to(dt), b.to(dt)
-        event_ms, n = time_ms(lambda: probe(v, av, bv))
-        ms = device_ms(lambda: probe(v, av, bv), n, "probe_")
-        out[v] = dict(ms=ms, launches=n, ns_per_pair=ms * 1e6 / pairs,
-                      ops_per_pair=OPS[v],
-                      share_f32_peak=OPS[v] * pairs / (ms * 1e-3) / F32_PEAK,
-                      event_ms=event_ms)
+        reps, ms64 = timing_reps(v, av, bv)
+        while True:
+            event_ms, n = time_ms(lambda: probe(v, av, bv, reps))
+            ms = device_ms(lambda: probe(v, av, bv, reps), n, "probe_")
+            if ms >= MIN_LAUNCH_MS:
+                break
+            reps *= 2
+        pairs = ROWS * LANES * reps
+        share = OPS[v] * pairs / (ms * 1e-3) / F32_PEAK
+        out[v] = dict(reps=reps, ms=ms, launches=n,
+                      ns_per_pair=ms * 1e6 / pairs, ops_per_pair=OPS[v],
+                      share_f32_peak=share,
+                      share_issue=share / issue_ceiling(v),
+                      event_ms=event_ms, ms_at_reps=ms64)
+    return out
+
+
+def _cuobjdump():
+    from neuralmelting_tpu_torch.ops import _build
+    return str(Path(_build.nvcc()).with_name("cuobjdump"))
+
+
+def loop_counts(sass):
+    """(arithmetic, other) instructions of the pass loop in one kernel's
+    SASS listing: the innermost loop (a backward branch) with the most
+    arithmetic instructions; NOPs not counted."""
+    insts, labels = [], {}
+    pending = []
+    for line in sass.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for p in pending:
+            labels[p] = addr
+        pending = []
+        text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+        insts.append((addr, text.split()[0] if text else "", text))
+    loops = []
+    for addr, op, text in insts:
+        if not op.startswith("BRA"):
+            continue
+        t = re.search(r"\((\.L_x_\d+)\)", text)
+        tgt = labels.get(t.group(1)) if t else None
+        if tgt is None:
+            h = re.search(r"0x([0-9a-f]+)", text)
+            tgt = int(h.group(1), 16) if h else None
+        if tgt is not None and tgt <= addr:
+            loops.append((tgt, addr))
+    inner = [(lo, hi) for lo, hi in loops if not any(
+        (lo2, hi2) != (lo, hi) and lo <= lo2 and hi2 <= hi
+        for lo2, hi2 in loops)]
+    best = (0, 0)
+    for lo, hi in inner:
+        ops = [op.split(".")[0] for addr, op, _ in insts
+               if lo <= addr <= hi and op.split(".")[0] != "NOP"]
+        arith = sum(o in ARITH_OPS for o in ops)
+        if arith > best[0]:
+            best = (arith, len(ops) - arith)
+    return best
+
+
+def sass_counts():
+    """Per variant: dict(arith, other, ceiling): the arithmetic and the
+    other instructions a pass of its pass loop (the loop's count over
+    UNROLL), from ``cuobjdump -sass`` of the built library, and the
+    share of 67 TFLOP/s at one instruction issued a cycle:
+    ``issue_ceiling`` x OPS / (arith + other)."""
+    from neuralmelting_tpu_torch.ops import _build
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"probe_(?:f32|bf16)ILi(\d+)E", body.split("\n", 1)[0])
+        if not m:
+            continue
+        v = VARIANTS[int(m.group(1))]
+        arith, other = loop_counts(body)
+        arith, other = arith / UNROLL, other / UNROLL
+        out[v] = dict(arith=arith, other=other,
+                      ceiling=issue_ceiling(v) * OPS[v]
+                      / max(arith + other, 1e-9))
     return out
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("the probe runs on the card: no CUDA device")
+    sass = sass_counts()
     for v, r in measure().items():
-        print(f"{v:14s} {r['ms']:8.4f} ms/launch on the device "
-              f"({r['event_ms']:.4f} as issued, {r['launches']} launches) "
-              f"{r['ns_per_pair']:8.5f} ns/pair  {r['ops_per_pair']:3d} "
-              f"f32 ops/pair  {100 * r['share_f32_peak']:6.2f}% of 67 TFLOP/s")
+        c = sass.get(v, dict(arith=float("nan"), other=float("nan"),
+                             ceiling=float("nan")))
+        print(f"{v:14s} reps {r['reps']:6d} {r['ms']:8.4f} ms/launch on "
+              f"the device ({r['event_ms']:.4f} as issued, "
+              f"{r['launches']} launches) {r['ns_per_pair']:8.5f} ns/pair  "
+              f"{r['ops_per_pair']:3d} ops/pair, SASS a pass "
+              f"{c['arith']:.3f} arith + {c['other']:.3f} other  "
+              f"{100 * r['share_f32_peak']:6.2f}% of 67 TFLOP/s, "
+              f"{100 * r['share_issue']:6.2f}% of the -fmad=false issue "
+              f"ceiling (SASS bound {100 * c['ceiling']:.2f}% of 67 "
+              f"TFLOP/s)")
 
 
 if __name__ == "__main__":

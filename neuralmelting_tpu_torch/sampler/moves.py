@@ -15,7 +15,8 @@ Each is split in two: ``*_draws`` makes the draws on the key's device
 ``hmc`` apply a move from its draws on the state's device, without
 reading anything back from it. The serial sweep (``sampler/serial.py``)
 makes a whole sweep's draws in one batch and calls the appliers, so no
-attempt waits on the card.
+attempt waits on the card; ``position_run`` applies a run of consecutive
+position attempts at once (on the card, one launch of kernel B5).
 
 The appliers leave the try/accept counters to the caller and return the
 acceptance (a 0-dim bool tensor on the state's device) with the log of
@@ -45,15 +46,19 @@ from neuralmelting_tpu_torch.sampler.state import box_volume
 @dataclasses.dataclass(frozen=True)
 class EnergyBackend:
     """total(pot,pos,box)->(pe,vir); delta_move(pot,pos,box,i,ri)->(dE,dW);
-    forces(pot,pos,box)->(N,3)."""
+    forces(pot,pos,box)->(N,3); position_run(pot,pos,box,ids,disp,ln_u,
+    nbeta,pe,virial)->(acc,weight), a run of position attempts applied in
+    order (``ops/lj_delta.py::position_run``)."""
     total: Callable
     delta_move: Callable
     forces: Callable
+    position_run: Callable
 
 
 def brute_backend() -> EnergyBackend:
-    """Brute-force O(N^2) energies; the incremental one is kernel B5 on a
-    CUDA tensor and its plain version on a CPU tensor."""
+    """Brute-force O(N^2) energies; the incremental one and a run of
+    position attempts are kernel B5 on a CUDA tensor and its plain
+    version on a CPU tensor."""
     from neuralmelting_tpu_torch.ops import energy, lj_delta
 
     def delta_move(pot, pos, box, i, new_ri):
@@ -67,7 +72,8 @@ def brute_backend() -> EnergyBackend:
         return de.reshape(()), dw.reshape(())
 
     return EnergyBackend(total=energy.pair_energy_virial,
-                         delta_move=delta_move, forces=energy.forces)
+                         delta_move=delta_move, forces=energy.forces,
+                         position_run=lj_delta.position_run)
 
 
 def wrap_pos(pos, box):
@@ -130,6 +136,15 @@ def position(pot, backend, state, nbeta, i: int, i_dev, disp, ln_u):
     state.pe.add_(torch.where(acc, de, 0.0))
     state.virial.add_(torch.where(acc, dw, 0.0))
     return acc, weight
+
+
+def position_run(pot, backend, state, nbeta, ids, disp, ln_u):
+    """A run of consecutive position trials, as ``position`` called for
+    each in order: atoms ``ids`` (A,) int32 on the state's device,
+    displacements ``disp`` (A, 3), ``ln_u`` (A,). Returns the acceptances
+    (A,) bool and the weights (A,) they were decided on."""
+    return backend.position_run(pot, state.pos, state.box, ids, disp, ln_u,
+                                nbeta, state.pe, state.virial)
 
 
 def volume(pot, p2e, backend, state, nbeta, v2u, ln_u):

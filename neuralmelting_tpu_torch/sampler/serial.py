@@ -16,10 +16,13 @@ The key tree depends on the key alone, so a sweep derives it on the host
 the sweep in one batch per move type (atom indices, displacement
 fractions, volume steps, HMC normals, acceptance uniforms), copied to the
 state's device once. Displacements are scaled to [-dpos, dpos) on the
-device, where dpos lives (it changes only at records). Each attempt then
-enqueues its move on the device and reads nothing back, so the host runs
-ahead of the card. The type thresholds are f32(ppos) and f32(ppos +
-pvol), the sum taken in f64 as in the JAX comparison ``u < ppos + pvol``.
+device, where dpos lives (it changes only at records). The sweep then
+walks the attempts in runs: each run of consecutive position attempts
+goes to ``moves.position_run`` at once (on the card, one launch of kernel
+B5 for the whole run), each volume or HMC attempt to its own applier.
+Nothing is read back, so the host runs ahead of the card. The type
+thresholds are f32(ppos) and f32(ppos + pvol), the sum taken in f64 as in
+the JAX comparison ``u < ppos + pvol``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,19 @@ def _to_device(t, device):
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def attempt_runs(mtypes):
+    """[(move type, first attempt, end attempt)] of a sweep's move types
+    in order: each run of consecutive position attempts as one entry,
+    every volume and HMC attempt as its own."""
+    runs = []
+    for a, t in enumerate(mtypes):
+        if t == POS and runs and runs[-1][0] == POS and runs[-1][2] == a:
+            runs[-1] = (POS, runs[-1][1], a + 1)
+        else:
+            runs.append((t, a, a + 1))
+    return runs
 
 
 def make_sweep_fn(kb, p2e, backend, ppos, pvol, nstps, mass, trace=None):
@@ -65,20 +81,20 @@ def make_sweep_fn(kb, p2e, backend, ppos, pvol, nstps, mass, trace=None):
         (idx_d, frac_d, lnu_p, v2u, lnu_v, normals, lnu_h, mtype_d) = (
             _to_device(t, dev) for t in (idx, frac, lnu_p, v2u, lnu_v,
                                          normals, lnu_h, mtype))
-        idx = idx.tolist()
         disp = moves.displacement(state, frac_d)
         nbeta = -(1.0 / (kb * state.temp))
         acc = torch.zeros(n, dtype=torch.bool, device=dev)
         margin = torch.zeros(n, dtype=torch.float32, device=dev) \
             if trace is not None else None
         seen = [0, 0, 0]
-        for a, t in enumerate(mtype.tolist()):
+        for t, a0, a1 in attempt_runs(mtype.tolist()):
             j = seen[t]
-            seen[t] += 1
+            seen[t] += a1 - a0
             if t == POS:
-                lnu = lnu_p[j]
-                ok, w = moves.position(pot, backend, state, nbeta, idx[j],
-                                       idx_d[j], disp[j], lnu)
+                lnu = lnu_p[j:seen[t]]
+                ok, w = moves.position_run(pot, backend, state, nbeta,
+                                           idx_d[j:seen[t]],
+                                           disp[j:seen[t]], lnu)
             elif t == VOL:
                 lnu = lnu_v[j]
                 ok, w = moves.volume(pot, p2e, backend, state, nbeta,
@@ -87,9 +103,9 @@ def make_sweep_fn(kb, p2e, backend, ppos, pvol, nstps, mass, trace=None):
                 lnu = lnu_h[j]
                 ok, w = moves.hmc(pot, kb, backend, state, nbeta,
                                   normals[j], lnu, nstps, mass)
-            acc[a] = ok
+            acc[a0:a1] = ok
             if margin is not None:
-                margin[a] = lnu - w
+                margin[a0:a1] = lnu - w
         for t, (na, nt) in enumerate((("nap", "ntp"), ("nav", "ntv"),
                                       ("nah", "nth"))):
             getattr(state, na).add_(((mtype_d == t) & acc).sum()
