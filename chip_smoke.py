@@ -64,11 +64,14 @@ Phases, in order (any failed check exits non-zero):
                    through moves.position with brute_backend() (one
                    batched launch an attempt): positions, pe, virial,
                    decisions and weights bit for bit equal; against
-                   position_run_plain on the CPU, decisions equal up to a
-                   rounding tie (margin < 1e-4); then a run of 256
-                   attempts at N=4096 (48 KB of shared memory), bit for
-                   bit against the per-attempt launches; times per launch
-                   and per attempt, and the bound summed over the run;
+                   position_run_plain on the CPU from the same state,
+                   decisions equal up to a rounding tie (margin < 1e-4),
+                   weights (up to the first tie) and, with no tie, pe,
+                   virial and positions within B5_RTOL x the summed term
+                   magnitudes plus f32 rounding; then a run of 256
+                   attempts at N=4096 (48 KB of shared memory), held the
+                   same two ways; times per launch and per attempt, and
+                   the bound summed over the run;
   13. golden      — BASELINE config 1 (tests/make_golden.py) through the
                    port's serial engine on the default device (the card),
                    B5's counters zeroed before and read after: launches
@@ -77,7 +80,10 @@ Phases, in order (any failed check exits non-zero):
                    and frames held to the committed tests/golden/config1.*
                    (the JAX package's run) and every decision to the
                    port's own CPU run of it; seconds per sweep, attempted
-                   moves/s, and one sweep under torch.profiler;
+                   moves/s, and one sweep under torch.profiler: device
+                   busy, idle share, device operations an attempt
+                   (python3 -m neuralmelting_tpu_torch.profile_chunk
+                   serial breaks it down);
   14. golden-hmc  — tests/test_golden.py's HMC case (32 atoms, ppos 0.7,
                    pvol 0.05, seed 9) on the card against the port's CPU
                    run: acceptance ratios equal, positions within 1e-2;
@@ -1175,10 +1181,11 @@ def chain_of(pos, box, pe, virial):
 def apply_runs(pot, chain, runs, per_attempt=False, run=LD.position_run):
     """Apply the runs to ``chain`` in order: one ``run`` call each, or
     (per_attempt) one moves.position call, one batched B5 launch, an
-    attempt. Returns (acc, weight), each over all attempts, and per
-    attempt the (mover, atom, side) terms inside rc when per_attempt."""
+    attempt. Returns (acc, weight), each over all attempts, and when
+    per_attempt, per attempt b5_terms' (summed |e|, summed |w|, terms
+    inside rc)."""
     be = moves.brute_backend()
-    acc, wgt, n_in = [], [], []
+    acc, wgt, terms = [], [], []
     for ids, disp, lnu, nbeta in runs:
         if not per_attempt:
             ok, w = run(pot, chain.pos, chain.box, ids, disp, lnu, nbeta,
@@ -1190,12 +1197,13 @@ def apply_runs(pot, chain, runs, per_attempt=False, run=LD.position_run):
             old = chain.pos[i].reshape(1, 1, 3)
             case = (chain.pos[None], chain.box[None], ids[k].reshape(1, 1),
                     old, old + disp[k])
-            n_in.append(b5_terms(pot, case)[2])
+            se, sw, k_in = b5_terms(pot, case)
+            terms.append((float(se), float(sw), k_in))
             ok, w = moves.position(pot, be, chain, nbeta, i, ids[k],
                                    disp[k], lnu[k])
             acc.append(ok.reshape(1))
             wgt.append(w.reshape(1))
-    return torch.cat(acc), torch.cat(wgt), n_in
+    return torch.cat(acc), torch.cat(wgt), terms
 
 
 def run_bound(n, nacc, n_in):
@@ -1217,7 +1225,8 @@ def same_bits(x, y):
 
 def compare_runs(pot, start, runs, tag):
     """Hold position_run to the per-attempt path from one start state, bit
-    for bit; returns (acc, the per-attempt path's terms inside rc)."""
+    for bit, and to position_run_plain on the CPU (``hold_to_plain``);
+    returns (acc, the per-attempt path's b5_terms)."""
     ka = chain_of(*start)
     LD.reset_launches()
     acc_k, w_k, _ = apply_runs(pot, ka, runs)
@@ -1225,7 +1234,7 @@ def compare_runs(pot, start, runs, tag):
     natt = LD.LAUNCHES["delta_attempts"]
     kb = chain_of(*start)
     LD.reset_launches()
-    acc_b, w_b, n_in = apply_runs(pot, kb, runs, per_attempt=True)
+    acc_b, w_b, terms = apply_runs(pot, kb, runs, per_attempt=True)
     torch.cuda.synchronize()
     check(nrun == len(runs) and natt == len(acc_b)
           and LD.LAUNCHES["delta"] == len(acc_b),
@@ -1241,7 +1250,67 @@ def compare_runs(pot, start, runs, tag):
         f"({int(acc_k.sum())} accepted) at N={start[0].shape[0]}: pos, pe, "
         f"virial, acc and weight bit for bit equal to {len(acc_b)} "
         f"per-attempt B5 launches")
-    return ka, acc_k, w_k, n_in
+    hold_to_plain(pot, start, runs, (ka, acc_k, w_k), terms, tag)
+    return ka, acc_k, w_k, terms
+
+
+def hold_to_plain(pot, start, runs, got, terms, tag):
+    """Hold the run kernel's result ``got`` (chain, acc, weight) to
+    position_run_plain on the CPU from the same start. Decisions equal up
+    to a rounding tie (margin < 1e-4). Up to the first decision that
+    differs, every weight within |nbeta| (B5_RTOL x the attempt's summed
+    |e| terms + 1e-6) + 2^-22 |weight|: dE to B5's tolerance, then each
+    side's rounding of the product. With no decision differing, pe and
+    virial within the sum over accepted attempts of B5_RTOL x summed
+    |terms| + 1e-6, plus 2^-23 (|pe| + those magnitudes) an accepted
+    attempt (each side's rounding of an add, at most 2^-24 of the sum), and
+    the positions within 1e-5. The largest error goes to ERR["delta"]."""
+    chain, acc_k, w_k = got
+    kc = chain_of(*(t.cpu() for t in start))
+    acc_c, w_c = apply_runs(pot, kc, [tuple(t.cpu() for t in r)
+                                      for r in runs])[:2]
+    acc_k, w_k = acc_k.cpu(), w_k.cpu()
+    nb = torch.cat([r[3].cpu().abs().expand(len(r[0])) for r in runs])
+    se, sw = (torch.tensor([t[j] for t in terms], dtype=torch.float64)
+              for j in (0, 1))
+    diff = torch.nonzero(acc_c != acc_k).reshape(-1)
+    upto = int(diff[0]) + 1 if len(diff) else len(acc_c)
+    if len(diff):
+        a = int(diff[0])
+        lnu = torch.cat([r[2].cpu() for r in runs])
+        mk = float((lnu[a] - w_k[a]).abs())
+        check(mk < 1e-4, f"[{tag}] decision {a} differs from "
+              f"position_run_plain's at margin {mk:.3e} (not a rounding tie)")
+        log(f"[{tag}] first decision that differs from position_run_plain "
+            f"on the CPU: attempt {a}, margin {mk:.3e}; weights held up to "
+            f"it, pe, virial and positions not held")
+    dw = (w_k[:upto].double() - w_c[:upto].double()).abs()
+    lim = nb[:upto] * (B5_RTOL * se[:upto] + 1e-6) \
+        + 2.0 ** -22 * w_c[:upto].double().abs()
+    check(bool((dw <= lim).all()), f"[{tag}] weight differs from "
+          f"position_run_plain's by up to {float(dw.max()):.3e}")
+    errs = {"weight": float(dw.max())}
+    msg = f"weight {errs['weight']:.3e} (limit {float(lim.min()):.3e}-" \
+        f"{float(lim.max()):.3e})"
+    if not len(diff):
+        ok = acc_c.double()
+        for nm, mag in (("pe", se), ("virial", sw)):
+            k, p = getattr(chain, nm).double().cpu(), getattr(kc, nm).double()
+            errs[nm] = float((k - p).abs())
+            lim_s = float((ok * (B5_RTOL * mag + 1e-6)).sum()) \
+                + int(acc_c.sum()) * 2.0 ** -23 * (float(p.abs())
+                                                   + float((ok * mag).sum()))
+            check(errs[nm] <= lim_s, f"[{tag}] {nm} differs from "
+                  f"position_run_plain's by {errs[nm]:.3e} (limit "
+                  f"{lim_s:.3e})")
+            msg += f", {nm} {errs[nm]:.3e} (limit {lim_s:.3e})"
+        errs["pos"] = float((chain.pos.cpu() - kc.pos).abs().max())
+        check(errs["pos"] <= 1e-5, f"[{tag}] positions differ from "
+              f"position_run_plain's by {errs['pos']:.3e}")
+        msg += f", pos {errs['pos']:.3e} (limit 1e-5)"
+    ERR["delta"] = max(ERR["delta"], *errs.values())
+    log(f"[{tag}] against position_run_plain on the CPU, {upto} attempts "
+        f"of {len(acc_c)} held: max |kernel - plain| {msg}")
 
 
 def phase_serial_run(name):
@@ -1250,27 +1319,11 @@ def phase_serial_run(name):
     runs = []
     serial.make_sweep_fn(1.0, 1.0, recording_backend(runs), 0.96875,
                          0.03125, 16, 1.0)(pot, GOLD.setup_chain(DEV)[1])
-    ka, acc_k, w_k, n_in = compare_runs(pot, start, runs, "serial-run")
+    _, acc_k, _, terms = compare_runs(pot, start, runs, "serial-run")
+    n_in = [t[2] for t in terms]
     # batched B5 is off the main path: its launches are the per-attempt
     # path's, one an attempt
     KERNELS["delta_batched"]["launches"] = len(n_in)
-    # against the plain version on the CPU: decisions up to a rounding tie
-    kc = chain_of(*(t.cpu() for t in start))
-    cpu_runs = [tuple(t.cpu() for t in r) for r in runs]
-    acc_c, _, _ = apply_runs(pot, kc, cpu_runs)
-    diff = torch.nonzero(acc_c != acc_k.cpu()).reshape(-1)
-    lnu = torch.cat([r[2] for r in runs])
-    if len(diff):
-        a = int(diff[0])
-        mk = float((lnu[a] - w_k[a]).abs())
-        check(mk < 1e-4, f"[serial-run] decision {a} differs from the CPU's "
-              f"at margin {mk:.3e} (not a rounding tie)")
-        log(f"[serial-run] first decision that differs from "
-            f"position_run_plain on the CPU: attempt {a}, margin {mk:.3e}")
-    else:
-        log(f"[serial-run] every decision equals position_run_plain on the "
-            f"CPU; pe {float(ka.pe):.6f} on the card, {float(kc.pe):.6f} on "
-            f"the CPU")
     # times: the sweep's runs replayed on a copy, per launch and attempt
     work = chain_of(*start)
     replay = lambda: apply_runs(pot, work, runs)          # noqa: E731
@@ -1304,11 +1357,12 @@ def phase_serial_run(name):
             torch.as_tensor(np.log(g.uniform(1e-6, 1.0, 256))
                             .astype(np.float32), device=DEV),
             torch.tensor(-1.0 / 0.8, dtype=torch.float32, device=DEV))]
-    _, acc_b, _, n_in_b = compare_runs(pot, (pos, box, pe, vir), big,
-                                       "serial-run")
+    _, acc_b, _, terms_b = compare_runs(pot, (pos, box, pe, vir), big,
+                                        "serial-run")
     work = chain_of(pos, box, pe, vir)
     ms_b = P1.device_ms(lambda: apply_runs(pot, work, big), 5, "delta_run")
-    bms_b, by_b = run_bound(4096, int(acc_b.sum()), n_in_b)
+    bms_b, by_b = run_bound(4096, int(acc_b.sum()),
+                            [t[2] for t in terms_b])
     log(f"[serial-run] N=4096, 256 attempts ({12 * 4096} B of shared "
         f"memory): {ms_b:.4f} ms a launch on the device, "
         f"{ms_b / 256 * 1e3:.3f} us an attempt, bound {bms_b:.6f} ms "
@@ -1410,39 +1464,23 @@ def phase_golden(name):
     profile_sweep(name)
 
 
-def kernel_label(key):
-    """A short name of a profiler kernel key: an elementwise kernel's
-    functor or implementing function, else the kernel's own name."""
-    for pat in (r"(\w*Functor\w*)<", r"::(\w+_(?:kernel_impl|kernel_cuda))\b"):
-        found = re.findall(pat, key)
-        if found:
-            return found[-1]
-    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
-    return key.split("(")[0].split("<")[0].strip()
-
-
 def profile_sweep(name):
     """One config-1 sweep on the card under torch.profiler, after one
-    warm-up sweep: wall, device busy and idle share, kernels per attempt,
-    and the most frequent kernels."""
+    warm-up sweep: wall, device busy and idle share, device operations an
+    attempt and B5's device time."""
     from torch.profiler import ProfilerActivity, profile
     pot, state, sweep = GOLD.setup_chain(DEV)
-    # a traced twin of the same key gives the profiled sweep's move types
-    # (the trace's margins would add device ops to the profiled sweep)
-    trace = []
-    _, twin, twin_sweep = GOLD.setup_chain(DEV, trace=trace)
-    for _ in range(2):
-        twin_sweep(pot, twin)
     sweep(pot, state)
     torch.cuda.synchronize()
+    LD.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         sweep(pot, state)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    nruns, npos = LD.LAUNCHES["delta"], LD.LAUNCHES["delta_attempts"]
     busy = kernels = b5 = 0.0
-    by_name = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1452,41 +1490,16 @@ def profile_sweep(name):
             continue
         busy += t
         kernels += ev.count
-        c, tt = by_name.get(kernel_label(ev.key), (0, 0.0))
-        by_name[kernel_label(ev.key)] = (c + ev.count, tt + t)
         if "delta_" in ev.key:
             b5 += t
     n = state.pos.shape[0]
-    mt = trace[-1][0].tolist()
-    nruns = sum(t == serial.POS for t, _, _ in serial.attempt_runs(mt))
     check(busy > 0, "[golden] the profiler saw no device time")
+    # config 1 has no HMC: every other attempt is a volume trial
     log(f"[golden] one sweep under torch.profiler ({nruns} runs of position "
-        f"attempts, {mt.count(serial.VOL)} volume trials): wall "
-        f"{wall:.3f} ms, device busy {busy:.3f} ms (B5 {b5:.3f} ms), idle "
-        f"share {1.0 - busy / wall:.4f} (0.9605 with one B5 launch an "
-        f"attempt), {kernels / n:.2f} device operations per attempt (20.7) "
-        f"on {name}")
-    log("[golden] its most frequent kernels (launches, device ms): "
-        + "; ".join(f"{k} {c}, {t:.3f}" for k, (c, t) in sorted(
-            by_name.items(), key=lambda kv: -kv[1][0])[:8]))
-    # the host's side of one more sweep: the port's functions by their
-    # cumulative time (cProfile; its own cost inflates the wall)
-    import cProfile
-    import pstats
-    prof = cProfile.Profile()
-    t = time.perf_counter()
-    prof.enable()
-    sweep(pot, state)
-    torch.cuda.synchronize()
-    prof.disable()
-    wall = (time.perf_counter() - t) * 1e3
-    rows = sorted(((ct * 1e3, nc, f"{os.path.basename(fn)}:{func}")
-                   for (fn, _, func), (_, nc, _, ct, _)
-                   in pstats.Stats(prof).stats.items()
-                   if "neuralmelting_tpu_torch" in fn), reverse=True)
-    log(f"[golden] one more sweep under cProfile, {wall:.1f} ms: the port's "
-        f"functions by cumulative ms (calls): "
-        + "; ".join(f"{f} {ms:.1f} ({nc})" for ms, nc, f in rows[:10]))
+        f"attempts, {n - npos} volume trials): wall {wall:.3f} ms, device "
+        f"busy {busy:.3f} ms (B5 {b5:.3f} ms), idle share "
+        f"{1.0 - busy / wall:.4f} (0.9605 with one B5 launch an attempt), "
+        f"{kernels / n:.2f} device operations per attempt (20.7) on {name}")
 
 
 def phase_golden_hmc(name):
@@ -1510,26 +1523,6 @@ def phase_golden_hmc(name):
     check(dx <= 1e-2, f"[golden-hmc] positions differ by {dx}")
 
 
-def sm_clocks(fn):
-    """(fn(), (median, min, max, maximum) SM clock in MHz sampled by
-    nvidia-smi every 50 ms while fn runs)."""
-    q = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-         "--format=csv,noheader,nounits"]
-    with tempfile.TemporaryFile("w+") as f:
-        proc = subprocess.Popen(q + ["-lms", "50"], stdout=f, text=True)
-        try:
-            out = fn()
-        finally:
-            proc.terminate()
-            proc.wait(timeout=60)
-        f.seek(0)
-        rows = [[int(x) for x in line.split(",")]
-                for line in f.read().split("\n") if line.strip()]
-    check(len(rows) > 0, "[probe] nvidia-smi sampled no clock")
-    sm = sorted(r[0] for r in rows)
-    return out, (sm[len(sm) // 2], sm[0], sm[-1], rows[0][1])
-
-
 def compare_probe(a, b, passes):
     """Every P1 variant at ``passes[variant]`` passes against its plain
     version; max |kernel - plain| by variant."""
@@ -1548,8 +1541,6 @@ def compare_probe(a, b, passes):
 
 
 def phase_probe(name):
-    check(P1.UNROLL == _build.load().nm_vpu_probe_unroll(),
-          "[probe] probe.UNROLL is not the kernels' kUnroll")
     a, b = P1.inputs(DEV)
     errs = compare_probe(a, b, dict.fromkeys(P1.VARIANTS, P1.REPS))
     log(f"[probe] max |kernel - plain| by variant at {P1.REPS} passes: "
@@ -1557,11 +1548,8 @@ def phase_probe(name):
         + " (limit, relative to max |plain|: 1e-6; 1e-4 for rcp.approx and "
         "rsqrtf; 2^-5 for bf16)")
     P1.reset_launches()
-    res, clocks = sm_clocks(lambda: P1.measure(DEV))
+    res = P1.measure(DEV)
     KERNELS["probe"]["launches"] = P1.LAUNCHES["probe"]
-    log(f"[probe] SM clock while timing (nvidia-smi every 50 ms): median "
-        f"{clocks[0]} MHz, range {clocks[1]}-{clocks[2]} MHz, of a maximum "
-        f"{clocks[3]} MHz")
     errs = compare_probe(a, b, {v: r["reps"] for v, r in res.items()})
     ERR["probe"] = errs["pair_div"]
     log("[probe] max |kernel - plain| by variant at its timing passes: "

@@ -175,27 +175,18 @@ def delta_moves_plain(pot, pos, box, ids, old_r, new_r):
 
 
 def position_run_plain(pot, pos, box, ids, disp, ln_u, nbeta, pe, virial):
-    """The plain PyTorch version of ``position_run``: per attempt, the
-    torch operations of ``moves.position`` with ``brute_backend()``, dE and
-    dW from ``delta_moves_plain``. Reads the run's atom indices on the
-    host."""
-    a = ids.shape[0]
-    acc = torch.empty(a, dtype=torch.bool, device=pos.device)
-    weight = torch.empty(a, dtype=torch.float32, device=pos.device)
+    """The plain PyTorch version of ``position_run``: ``moves.position``
+    once an attempt, dE and dW from ``delta_moves_plain``. Reads the run's
+    atom indices on the host."""
+    from types import SimpleNamespace
+
+    from neuralmelting_tpu_torch.sampler import moves
+    be = moves.brute_backend(plain=True)
+    chain = SimpleNamespace(pos=pos, box=box, pe=pe, virial=virial)
+    acc = torch.empty(ids.shape[0], dtype=torch.bool, device=pos.device)
+    weight = torch.empty(ids.shape[0], dtype=torch.float32,
+                         device=pos.device)
     for k, i in enumerate(ids.tolist()):
-        old = pos[i]
-        new_ri = old + disp[k]
-        de, dw = delta_moves_plain(
-            pot, pos[None], box[None], ids[k].reshape(1, 1),
-            pos.index_select(0, ids[k].reshape(1)).reshape(1, 1, 3),
-            new_ri.reshape(1, 1, 3))
-        de, dw = de.reshape(()), dw.reshape(())
-        w = nbeta * de
-        ok = ln_u[k] < w
-        pos[i] = torch.where(ok, new_ri - box * torch.floor(new_ri / box),
-                             old)
-        pe.add_(torch.where(ok, de, 0.0))
-        virial.add_(torch.where(ok, dw, 0.0))
-        acc[k] = ok
-        weight[k] = w
+        acc[k], weight[k] = moves.position(pot, be, chain, nbeta, i, ids[k],
+                                           disp[k], ln_u[k])
     return acc, weight

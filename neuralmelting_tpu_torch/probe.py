@@ -26,6 +26,7 @@ issue ceiling of code built with -fmad=false, as every kernel of the
 port is (``issue_ceiling``): one operation an FP32 instruction, 50% of
 that peak (a bf16x2 instruction does two pairs' operation, so 100% for
 the bf16 variants).
+``main`` also samples the SM clock while it times (``sm_clocks``).
 ``sass_counts`` reads each variant's pass loop from ``cuobjdump -sass``
 of the built library: its arithmetic instructions (FP32, or bf16x2) and
 its other instructions a pass, whose sum sets the ceiling 50% x OPS /
@@ -37,6 +38,7 @@ from __future__ import annotations
 import math
 import re
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -54,9 +56,6 @@ OPS = {"div": 17, "recip": 21, "recip0": 18, "rsqrt": 19, "nodiv": 18,
 F32_PEAK = 67e12
 SIG2, RC2 = 1.0, 6.25
 LAUNCHES = {"probe": 0}
-# passes an iteration of the kernels' pass loop (csrc/vpu_probe.cu
-# kUnroll): a kernel's reps is a multiple of it
-UNROLL = 8
 # least device time of one timed launch
 MIN_LAUNCH_MS = 1.0
 # SASS opcodes of one f32 or bf16x2 operation of the mix
@@ -66,6 +65,13 @@ _SCALES = {}
 
 def reset_launches():
     LAUNCHES["probe"] = 0
+
+
+def unroll():
+    """Passes an iteration of the kernels' pass loop (csrc/vpu_probe.cu
+    kUnroll): a launch's reps is a multiple of it."""
+    from neuralmelting_tpu_torch.ops import _build
+    return _build.load().nm_vpu_probe_unroll()
 
 
 def dtype_of(variant):
@@ -104,13 +110,13 @@ def _scale_table(variant, reps, device):
 
 def probe(variant, a, b, reps=REPS):
     """One launch of P1's ``variant`` on CUDA tensors: (ROWS, LANES) f32;
-    ``reps`` a multiple of ``UNROLL``."""
+    ``reps`` a multiple of ``unroll()``."""
     from neuralmelting_tpu_torch.ops import _build
     if a.device.type != "cuda":
         raise ValueError("the probe kernel runs on CUDA tensors")
-    if reps <= 0 or reps % UNROLL:
+    if reps <= 0 or reps % unroll():
         raise ValueError(f"reps {reps}: the kernel takes a positive "
-                         f"multiple of {UNROLL}")
+                         f"multiple of {unroll()}")
     dt = dtype_of(variant)
     for name, t in (("a", a), ("b", b)):
         if t.dtype != dt or t.shape != (ROWS, LANES) or \
@@ -241,12 +247,13 @@ def issue_ceiling(variant):
 
 
 def timing_reps(variant, a, b):
-    """(reps, device ms of a launch at REPS): the multiple of UNROLL at
+    """(reps, device ms of a launch at REPS): the multiple of unroll() at
     which a launch should last MIN_LAUNCH_MS, scaled from REPS with a
     tenth to spare."""
     ms = device_ms(lambda: probe(variant, a, b), 20, "probe_")
     per = MIN_LAUNCH_MS * 1.1 * REPS / ms
-    return UNROLL * max(1, math.ceil(per / UNROLL)), ms
+    u = unroll()
+    return u * max(1, math.ceil(per / u)), ms
 
 
 def measure(device="cuda"):
@@ -331,7 +338,7 @@ def loop_counts(sass):
 def sass_counts():
     """Per variant: dict(arith, other, ceiling): the arithmetic and the
     other instructions a pass of its pass loop (the loop's count over
-    UNROLL), from ``cuobjdump -sass`` of the built library, and the
+    unroll()), from ``cuobjdump -sass`` of the built library, and the
     share of 67 TFLOP/s at one instruction issued a cycle:
     ``issue_ceiling`` x OPS / (arith + other)."""
     from neuralmelting_tpu_torch.ops import _build
@@ -345,18 +352,42 @@ def sass_counts():
             continue
         v = VARIANTS[int(m.group(1))]
         arith, other = loop_counts(body)
-        arith, other = arith / UNROLL, other / UNROLL
+        arith, other = arith / unroll(), other / unroll()
         out[v] = dict(arith=arith, other=other,
                       ceiling=issue_ceiling(v) * OPS[v]
                       / max(arith + other, 1e-9))
     return out
 
 
+def sm_clocks(fn):
+    """(fn(), the SM clocks in MHz that nvidia-smi samples every 50 ms
+    while fn runs, and the card's maximum SM clock; both empty where
+    nvidia-smi reads none)."""
+    q = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "50"]
+    with tempfile.TemporaryFile("w+") as f:
+        proc = subprocess.Popen(q, stdout=f, stderr=subprocess.DEVNULL,
+                                text=True)
+        try:
+            out = fn()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+        f.seek(0)
+        rows = [line.split(",") for line in f.read().splitlines()
+                if re.fullmatch(r"\s*\d+\s*,\s*\d+\s*", line)]
+    return out, sorted(int(r[0]) for r in rows), [int(r[1]) for r in rows]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("the probe runs on the card: no CUDA device")
     sass = sass_counts()
-    for v, r in measure().items():
+    res, sm, top = sm_clocks(measure)
+    print("SM clock while timing (nvidia-smi every 50 ms): " + (
+        f"median {sm[len(sm) // 2]} MHz, range {sm[0]}-{sm[-1]} MHz, of a "
+        f"maximum {top[0]} MHz" if sm else "not measured"))
+    for v, r in res.items():
         c = sass.get(v, dict(arith=float("nan"), other=float("nan"),
                              ceiling=float("nan")))
         print(f"{v:14s} reps {r['reps']:6d} {r['ms']:8.4f} ms/launch on "

@@ -2,6 +2,7 @@
 
     python3 -m neuralmelting_tpu_torch.profile_chunk          # both paths
     python3 -m neuralmelting_tpu_torch.profile_chunk eam      # or: lj
+    python3 -m neuralmelting_tpu_torch.profile_chunk serial   # config 1
 
 LJ runs the north-star configuration (bench.py: 4096 atoms, 32x32 (P,T)
 grid, R=1024), EAM scripts/eambench.py's (4096 Al atoms, 16x16 grid,
@@ -11,12 +12,23 @@ each: set up on the card, run one warm-up chunk of 4 records x 8 sweeps
 torch.profiler. Prints the chunk's wall time and attempted moves/s, the
 device time of every kernel (calls, total ms, share of the device's busy
 time) and the device's idle share, 1 - busy / wall, with the card's name
-and power limit. Needs a CUDA device; imports nothing of jax.
+and power limit.
+
+``serial`` takes BASELINE config 1's serial chain instead
+(``golden.setup_chain``: 256 LJ atoms), one warm-up sweep, then one sweep
+under torch.profiler: wall, device busy, idle share, device operations an
+attempt and the most launched kernels (launches, device ms), by functor
+for torch's elementwise kernels; then one more sweep under cProfile, the
+port's functions by cumulative host time (cProfile's own cost inflates
+that sweep's wall). Needs a CUDA device; imports nothing of jax.
 """
 
 from __future__ import annotations
 
+import cProfile
 import os
+import pstats
+import re
 import subprocess
 import sys
 import tempfile
@@ -26,7 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from neuralmelting_tpu_torch import runner
+from neuralmelting_tpu_torch import golden, runner
 from neuralmelting_tpu_torch.config import RunConfig
 from neuralmelting_tpu_torch.models import eam_gen
 
@@ -85,6 +97,61 @@ def profile_chunk(tag, cfg, setfl):
               f"x  {key[:90]}", flush=True)
 
 
+def kernel_label(key):
+    """A short name of a profiler kernel key: an elementwise kernel's
+    functor or implementing function, else the kernel's own name."""
+    for pat in (r"(\w*Functor\w*)<", r"::(\w+_(?:kernel_impl|kernel_cuda))\b"):
+        found = re.findall(pat, key)
+        if found:
+            return found[-1]
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].split("<")[0].strip()
+
+
+def profile_serial():
+    pot, state, sweep = golden.setup_chain("cuda")
+    sweep(pot, state)                                          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sweep(pot, state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and _device_ms(ev) > 0:
+            c, ms = by_name.get(kernel_label(ev.key), (0, 0.0))
+            by_name[kernel_label(ev.key)] = (c + ev.count,
+                                             ms + _device_ms(ev))
+    busy = sum(ms for _, ms in by_name.values())
+    if busy <= 0:
+        raise SystemExit("[serial] the profiler saw no device time")
+    n = state.pos.shape[0]
+    print(f"[serial] one sweep of {n} attempts: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {1.0 - busy / wall:.4f}, "
+          f"{sum(c for c, _ in by_name.values()) / n:.2f} device operations "
+          f"an attempt", flush=True)
+    for k, (c, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[serial]   {c:6d} x {ms:9.3f} ms  {k}", flush=True)
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.enable()
+    sweep(pot, state)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t) * 1e3
+    rows = sorted(((ct * 1e3, nc, f"{os.path.basename(fn)}:{func}")
+                   for (fn, _, func), (_, nc, _, ct, _)
+                   in pstats.Stats(prof).stats.items()
+                   if "neuralmelting_tpu_torch" in fn), reverse=True)
+    print(f"[serial] one more sweep under cProfile, wall {wall:.1f} ms; the "
+          f"port's functions by cumulative ms (calls):", flush=True)
+    for ms, nc, f in rows[:10]:
+        print(f"[serial]   {ms:8.1f} ms ({nc:5d})  {f}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_chunk: no CUDA device", file=sys.stderr)
@@ -98,7 +165,10 @@ def main():
     eam_gen.write_setfl(table, rc=3.8)
     cfgs = configs()
     for tag in sys.argv[1:] or ["lj", "eam"]:
-        profile_chunk(tag, cfgs[tag], table if tag == "eam" else None)
+        if tag == "serial":
+            profile_serial()
+        else:
+            profile_chunk(tag, cfgs[tag], table if tag == "eam" else None)
     return 0
 
 

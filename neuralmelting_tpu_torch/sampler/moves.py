@@ -55,25 +55,28 @@ class EnergyBackend:
     position_run: Callable
 
 
-def brute_backend() -> EnergyBackend:
+def brute_backend(plain: bool = False) -> EnergyBackend:
     """Brute-force O(N^2) energies; the incremental one and a run of
     position attempts are kernel B5 on a CUDA tensor and its plain
-    version on a CPU tensor."""
+    version on a CPU tensor, or (``plain``) the plain version on every
+    device, the reference B5 is held to."""
     from neuralmelting_tpu_torch.ops import energy, lj_delta
+    delta = lj_delta.delta_moves_plain if plain else lj_delta.delta_moves
 
     def delta_move(pot, pos, box, i, new_ri):
         # index with the tensor itself: a device index is never read back
         ids = torch.as_tensor(i, dtype=torch.int32,
                               device=pos.device).reshape(1)
-        de, dw = lj_delta.delta_moves(
-            pot, pos[None], box[None], ids.reshape(1, 1),
-            pos.index_select(0, ids).reshape(1, 1, 3),
-            new_ri.reshape(1, 1, 3))
+        de, dw = delta(pot, pos[None], box[None], ids.reshape(1, 1),
+                       pos.index_select(0, ids).reshape(1, 1, 3),
+                       new_ri.reshape(1, 1, 3))
         return de.reshape(()), dw.reshape(())
 
-    return EnergyBackend(total=energy.pair_energy_virial,
-                         delta_move=delta_move, forces=energy.forces,
-                         position_run=lj_delta.position_run)
+    return EnergyBackend(
+        total=energy.pair_energy_virial, delta_move=delta_move,
+        forces=energy.forces,
+        position_run=(lj_delta.position_run_plain if plain
+                      else lj_delta.position_run))
 
 
 def wrap_pos(pos, box):
