@@ -43,6 +43,25 @@ Phases, in order (any failed check exits non-zero):
   8. eam-main    — melting_pipeline(element="AL", engine="cellmc") on the
                    default device at that configuration with a short
                    schedule; B3/B4 counters zeroed before and read after;
+  CLI and bench (kernels B1-B4 through the port's entry points):
+  8a. cli        — the five stages remcmc -> parse -> rdf -> neural -> post
+                   in-process through their main(argv) on the card, in a
+                   temp directory: LJ 16x8x8 fcc = 4096 atoms (full width),
+                   an 8x8 (P, T) grid (a cut of the 32x32 north star, for
+                   the ~50 MB of text it writes), 4 records of 8 sweeps,
+                   seed 1234, with frames; B1/B2 counters zeroed before
+                   remcmc and read after; diag 0, 64 .thrm and 64 .traj
+                   files, the checkpoint, one sampling_chunk event, the
+                   parsed and feature shapes, a finite T_m, post --no-plot;
+                   then remcmc --restart from the checkpoint for 2 records:
+                   per slot, the first record's pe/N within RESTART_TOL of
+                   the checkpointed run's last (a restart that sampled from
+                   the lattice would lie beyond it); seconds per stage and
+                   which text writer ran;
+  8b. bench      — python -m neuralmelting_tpu_torch.bench's main in-process
+                   at its full configuration (its JSON line printed as it
+                   is): every row's diag 0 and rate > 0; B1-B4 counters
+                   zeroed before and read after, each > 0;
   9. eam-physics — docs/VALIDATION.md config 3, the heating leg as
                    scripts/eam_tm_ab.py pins it, as 8 chains (seeds 5-12)
                    held to the JAX gather engine's chains of the same
@@ -105,7 +124,9 @@ time the card could take for that work,
 bound_ms, from its bytes over 3.35 TB/s or its f32 operations over
 67 TFLOP/s, whichever is larger; B3's and B4's entries also carry
 chunk_kcap and chunk_ms, the time at the chunks' K, B4's also ms_virial,
-bound_ms_virial and chunk_ms_virial), and {"ok": true, "device": {...}}.
+bound_ms_virial and chunk_ms_virial; B1-B4's entries carry launches_cli
+and launches_bench, their launches in the cli and bench phases), and
+{"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it
 exits non-zero and prints no result. Imports nothing of jax or of the JAX
 package.
@@ -113,6 +134,9 @@ package.
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
 import math
 import os
@@ -126,11 +150,17 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from neuralmelting_tpu_torch import bench as BENCH
 from neuralmelting_tpu_torch import golden as GOLD
 from neuralmelting_tpu_torch import probe as P1
 from neuralmelting_tpu_torch import runner
+from neuralmelting_tpu_torch.cli import neural as CLI_NEURAL
+from neuralmelting_tpu_torch.cli import parse as CLI_PARSE
+from neuralmelting_tpu_torch.cli import post as CLI_POST
+from neuralmelting_tpu_torch.cli import rdf as CLI_RDF
+from neuralmelting_tpu_torch.cli import remcmc as CLI_REMCMC
 from neuralmelting_tpu_torch.config import RunConfig
-from neuralmelting_tpu_torch.io import thermo, traj
+from neuralmelting_tpu_torch.io import native, thermo, traj
 from neuralmelting_tpu_torch.models import eam as eam_mod
 from neuralmelting_tpu_torch.models import eam_cheb, eam_gen
 from neuralmelting_tpu_torch.models.lattice import make_supercell
@@ -150,6 +180,7 @@ from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.profile_chunk import configs
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 from neuralmelting_tpu_torch.sampler import moves, serial
+from neuralmelting_tpu_torch.utils import MetricsLogger
 
 DEV = torch.device("cuda")
 FULL = configs()     # LJ north star, EAM eambench: 4096 atoms each
@@ -187,6 +218,12 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 Z_PHYS = 4.0            # standard errors allowed between port and JAX
 CLF_SEEDS = range(4)    # classifier initial weights per chain
 KB_EV = 8.617333262e-5
+# cli: |pe/N of the restart's first record - the checkpointed run's last|
+# per slot. The lattice's pe/N (printed beside) lies > 0.5 below every
+# slot's after 32 sweeps, so a restart that sampled from the lattice
+# fails; the hot slots (superheated crystals that melt) still drift
+# between records 8 sweeps apart, by less than the limit
+RESTART_TOL = 0.25
 ERR = {k: 0.0 for k in KERNELS}
 TIMES = {}
 BOUND = {}
@@ -944,6 +981,134 @@ def phase_eam_main(name, table):
           "[eam-main] record pe/N not finite or outside (-3.5, -2.5) eV")
 
 
+# ---------------------------------------------------------------------------
+# the CLI stages and the bench
+# ---------------------------------------------------------------------------
+
+def run_stage(main, argv):
+    """Call a CLI stage's main(argv) in-process; echo and return what it
+    printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        log(f"[cli]   | {line}")
+    return text
+
+
+def slot_pe(outdir, prefix, natoms):
+    """(slots, nrec) pe/N from the .thrm files of a remcmc run."""
+    paths = sorted(glob.glob(os.path.join(outdir, prefix + ".*.thrm")))
+    return np.stack([thermo.read(p)[1]["pe"] / natoms for p in paths])
+
+
+def phase_cli(name):
+    """The five CLI stages at 4096 atoms on an 8x8 grid, then a restart."""
+    tmp = tempfile.mkdtemp(prefix="nm_cli_")
+    out, out2 = os.path.join(tmp, "out"), os.path.join(tmp, "restart")
+    argv = ["-n", "cli", "-e", "LJ", "-ss", "16", "8", "8", "-pn", "8",
+            "-pr", "1", "8", "-tn", "8", "-tr", "0.7", "1.3", "-sn", "4",
+            "-sm", "8", "-sc", "1", "-sd", "1234"]
+    prefix = "cli.lj.fcc.16x8x8"
+    secs = {}
+    CK.reset_launches()
+    t = time.perf_counter()
+    summary = json.loads(run_stage(CLI_REMCMC.main, argv + ["-o", out])
+                         .strip().splitlines()[-1])
+    secs["remcmc"] = time.perf_counter() - t
+    launches = dict(CK.LAUNCHES)
+    for k in ("sweep", "total"):
+        KERNELS[k]["launches_cli"] = launches[k]
+    ckpt = os.path.join(out, "cli.lj.ckpt.npz")
+    thrm = glob.glob(os.path.join(out, prefix + ".*.thrm"))
+    trj = glob.glob(os.path.join(out, prefix + ".*.traj"))
+    events = MetricsLogger.read(os.path.join(out, "metrics.jsonl"))
+    log(f"[cli] remcmc: diag={summary['diag']} launches={launches} "
+        f"{len(thrm)} .thrm, {len(trj)} .traj, text "
+        f"{sum(os.path.getsize(p) for p in thrm + trj) / 1e6:.1f} MB, "
+        f"writer {native.writer()}; {secs['remcmc']:.2f} s on {name}")
+    check(summary["diag"] == 0, f"[cli] remcmc diag {summary['diag']}")
+    check(launches["sweep"] > 0 and launches["total"] > 0,
+          f"[cli] a kernel never launched: {launches}")
+    check(len(thrm) == 64 and len(trj) == 64,
+          f"[cli] {len(thrm)} .thrm and {len(trj)} .traj files, not 64")
+    check(os.path.exists(ckpt), "[cli] no checkpoint")
+    check([e["event"] for e in events] == ["sampling_chunk"],
+          f"[cli] metrics events {[e['event'] for e in events]}")
+
+    t = time.perf_counter()
+    run_stage(CLI_PARSE.main, ["-i", out, "-n", "cli", "-e", "LJ"])
+    secs["parse"] = time.perf_counter() - t
+    parsed = os.path.join(out, prefix + ".parsed.npz")
+    with np.load(parsed) as z:
+        shape = z["positions"].shape
+    check(shape == (8, 8, 4, 4096, 3), f"[cli] parsed positions {shape}")
+
+    t = time.perf_counter()
+    run_stage(CLI_RDF.main, ["-i", parsed, "--nbins", "64", "--cut", "1"])
+    secs["rdf"] = time.perf_counter() - t
+    rdfz = parsed.replace(".parsed.npz", ".rdf.npz")
+    with np.load(rdfz, allow_pickle=True) as z:
+        shape = z["g_mean"].shape
+        check(np.isfinite(z["g_mean"]).all(), "[cli] non-finite g(r)")
+    check(shape == (8, 8, 64), f"[cli] g_mean {shape}")
+
+    t = time.perf_counter()
+    run_stage(CLI_NEURAL.main, ["-i", rdfz, "--epochs", "100"])
+    secs["neural"] = time.perf_counter() - t
+    meltz = rdfz.replace(".rdf.npz", ".melt.npz")
+    with np.load(meltz) as z:
+        tm = z["tm"]
+    check(tm.shape == (8,) and np.isfinite(tm).all(), f"[cli] T_m {tm}")
+
+    t = time.perf_counter()
+    post_out = run_stage(CLI_POST.main, ["-i", meltz, "--no-plot"])
+    secs["post"] = time.perf_counter() - t
+    check(post_out.count("T_m=") == 8, "[cli] post: not one row a pressure")
+
+    t = time.perf_counter()
+    summary2 = json.loads(run_stage(
+        CLI_REMCMC.main, argv + ["-sn", "2", "-o", out2, "--restart", ckpt])
+        .strip().splitlines()[-1])
+    secs["restart"] = time.perf_counter() - t
+    last = slot_pe(out, prefix, 4096)[:, -1]
+    first = slot_pe(out2, prefix, 4096)[:, 0]
+    gap = float(np.max(np.abs(first - last)))
+    pos, box = make_supercell("fcc", 2.0 ** (2.0 / 3.0), (16, 8, 8))
+    lattice = float(pair_energy_virial(
+        LJCut.create(), torch.as_tensor(pos, dtype=torch.float32, device=DEV),
+        torch.as_tensor(box, dtype=torch.float32, device=DEV))[0]) / 4096
+    log(f"[cli] restart: diag={summary2['diag']}; per slot |first pe/N - "
+        f"checkpointed last| <= {gap:.4f} (limit {RESTART_TOL}); the "
+        f"lattice's pe/N {lattice:.4f} against the last "
+        f"{last.min():.4f}..{last.max():.4f}")
+    check(summary2["diag"] == 0, f"[cli] restart diag {summary2['diag']}")
+    check(gap <= RESTART_TOL, f"[cli] restart pe/N moved by {gap}")
+    log(f"[cli] seconds: " + ", ".join(f"{k} {v:.2f}"
+                                       for k, v in secs.items())
+        + f"; text writer: {native.writer()} on {name}")
+
+
+def phase_bench(name):
+    CK.reset_launches()
+    CE.reset_launches()
+    t = time.perf_counter()
+    row = BENCH.main([])
+    launches = {**CK.LAUNCHES, **CE.LAUNCHES}
+    for k, v in launches.items():
+        KERNELS[k]["launches_bench"] = v
+    log(f"[bench] launches={launches}; {time.perf_counter() - t:.1f} s on "
+        f"{name}")
+    for k in ("lj_kernel_diag", "lj_e2e_diag", "eam_diag"):
+        check(row[k] == 0, f"[bench] {k} {row[k]}")
+    for k in ("lj_kernel_moves_per_sec", "lj_e2e_moves_per_sec",
+              "eam_moves_per_sec"):
+        check(row[k] > 0, f"[bench] {k} {row[k]}")
+    check(all(v > 0 for v in launches.values()),
+          f"[bench] a kernel never launched: {launches}")
+
+
 def config3(seed):
     """docs/VALIDATION.md config 3, the heating leg as scripts/eam_tm_ab.py
     pins it, with the chain seed given."""
@@ -1591,6 +1756,8 @@ def main():
               ("eam-small", lambda: phase_eam_small(table)),
               ("eam-full", lambda: phase_eam_full(name, table)),
               ("eam-main", lambda: phase_eam_main(name, table)),
+              ("cli", lambda: phase_cli(name)),
+              ("bench", lambda: phase_bench(name)),
               ("eam-physics", lambda: phase_eam_physics(name, table)),
               ("serial-small", phase_serial_small),
               ("serial-full", lambda: phase_serial_full(name)),

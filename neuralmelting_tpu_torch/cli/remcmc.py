@@ -1,0 +1,100 @@
+"""Stage 1 — REMCMC sampling (reference: lammps_remcmc.py; counterpart of
+``neuralmelting_tpu.cli.remcmc``).
+
+Runs the replica-exchange NPT Monte Carlo ensemble on the card (or on
+``--device cpu``) and writes per-(P,T) .thrm/.traj text files, a
+checkpoint and ``metrics.jsonl``; the last line printed is a JSON summary.
+
+    python -m neuralmelting_tpu_torch.cli.remcmc -e LJ -ss 4 -pn 4 -tn 16 -o out/
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import time
+
+from neuralmelting_tpu_torch import runner
+from neuralmelting_tpu_torch.cli.common import add_run_args, config_from_args
+from neuralmelting_tpu_torch.utils import MetricsLogger
+
+_MULTI = ("multi-process runs are not ported yet: ROADMAP A12 (multi-GPU "
+          "replica sharding)")
+
+
+def _trace(profile_dir):
+    """A torch.profiler context writing a Chrome trace into
+    ``profile_dir`` on exit, or a null context."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+
+    def write(prof):
+        prof.export_chrome_trace(os.path.join(profile_dir,
+                                              "remcmc.trace.json"))
+
+    return profile(activities=acts, on_trace_ready=write)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    add_run_args(ap)
+    ap.add_argument("-o", "--outdir", default="output")
+    ap.add_argument("--no-traj", action="store_true")
+    ap.add_argument("--engine", default="cellmc",
+                    choices=("gather", "dense", "cellmc"),
+                    help="cellmc = the cell-MC CUDA kernels (LJ stride-2, "
+                         "EAM stride-3 Chebyshev); gather and dense are "
+                         "not ported (the runner names their ROADMAP items)")
+    ap.add_argument("--restart", default=None,
+                    help="checkpoint .npz to resume from")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "into DIR")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-process runs: not ported (ROADMAP A12)")
+    ap.add_argument("--nprocs", type=int, default=None)
+    ap.add_argument("--procid", type=int, default=None)
+    args = ap.parse_args(argv)
+    if args.coordinator or args.nprocs is not None \
+            or args.procid is not None:
+        raise NotImplementedError(_MULTI)
+    cfg = config_from_args(args)
+
+    t0 = time.time()
+    setup = runner.setup_run(cfg, setfl=args.setfl, engine=args.engine,
+                             device=args.device)
+    if args.restart:
+        setup = runner.restore_setup(setup, args.restart)
+        print(f"resumed from {args.restart}")
+    os.makedirs(args.outdir, exist_ok=True)
+    ckpath = os.path.join(args.outdir,
+                          f"{cfg.name}.{cfg.element.lower()}.ckpt.npz")
+    metrics = MetricsLogger(os.path.join(args.outdir, "metrics.jsonl"),
+                            run_id=cfg.name)
+    with _trace(args.profile):
+        setup, recs, frames, hist, xacc, diag = runner.run_sampling(
+            setup, outdir=args.outdir, checkpoint_path=ckpath,
+            write_traj=not args.no_traj, metrics=metrics)
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
+    print(json.dumps({
+        "outdir": args.outdir, "records": int(cfg.nsmpl),
+        "replicas": int(len(setup.press) * len(setup.temp)),
+        "natoms": setup.natoms, "diag": int(diag),
+        "attempted_position_moves": int(setup.states.ntp.sum()),
+        "exchange_acceptances": [int(x) for x in xacc.tolist()],
+        "seconds": round(time.time() - t0, 2),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,72 @@
+"""Ensemble checkpoint and restart (counterpart of
+``neuralmelting_tpu.io.checkpoint``), in the JAX package's npz layout.
+
+One uncompressed ``.npz`` holds every ``MCState`` field (f32 tensors,
+int32 counters and ``sweep``), ``key_data`` (R, 2) uint32, ``slot_of``
+int32, ``config`` (the ``RunConfig`` JSON as bytes) and each extra entry
+as ``x_<name>``. The JAX package's ``checkpoint.load`` reads a port
+checkpoint and this ``load`` reads a JAX one.
+
+Port ensembles carry no per-replica key (``sampler/state.py``), so
+``save`` writes ``key_data`` as the JAX ``ensemble_init`` derives it,
+``fold_in(key(seed), r)`` for replica r (``ops/jrandom.py``), with the
+seed read from the config; ``load`` drops it. What the port's runner
+needs for an exact resume travels as extras (``runner.checkpoint_extras``).
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from neuralmelting_tpu_torch.ops import jrandom
+from neuralmelting_tpu_torch.sampler.state import FIELDS, MCState
+
+_INT_FIELDS = ("nap", "ntp", "nav", "ntv", "nah", "nth", "sweep")
+
+
+def ensemble_key_data(seed: int, r: int) -> np.ndarray:
+    """(r, 2) uint32: the JAX ensemble's replica keys for ``seed``."""
+    keys = jrandom.fold_in(jrandom.key(seed), torch.arange(r))
+    return keys.numpy().astype(np.uint32)
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def save(path: str, states: MCState, slot_of, config_json: str = "{}",
+         extra: dict = None):
+    """Write ``states`` (an ensemble, leading R), ``slot_of``, the config
+    (its ``seed`` derives ``key_data``; 0 without one) and the extras."""
+    seed = json.loads(config_json).get("seed", 0)
+    arrays = {}
+    for f in FIELDS:
+        dt = np.int32 if f in _INT_FIELDS else np.float32
+        arrays[f] = _host(getattr(states, f)).astype(dt)
+    arrays["key_data"] = ensemble_key_data(seed, states.temp.shape[0])
+    arrays["slot_of"] = _host(slot_of).astype(np.int32)
+    for k, v in (extra or {}).items():
+        arrays["x_" + k] = _host(v)
+    np.savez(path, config=np.frombuffer(config_json.encode(), np.uint8),
+             **arrays)
+
+
+def load(path: str, device="cpu"):
+    """Returns (states, slot_of, config_json, extra): ``states`` and
+    ``slot_of`` as tensors on ``device`` (f32 fields, int32 counters),
+    ``extra`` the ``x_`` entries as numpy arrays."""
+    with np.load(path) as z:
+        def t(name, dt):
+            return torch.as_tensor(np.asarray(z[name]), dtype=dt,
+                                   device=device)
+
+        states = MCState(**{f: t(f, torch.int32 if f in _INT_FIELDS
+                                 else torch.float32) for f in FIELDS})
+        slot_of = t("slot_of", torch.int32)
+        config_json = bytes(z["config"]).decode() if "config" in z \
+            else "{}"
+        extra = {k[2:]: z[k] for k in z.files if k.startswith("x_")}
+    return states, slot_of, config_json, extra

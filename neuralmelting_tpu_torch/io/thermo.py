@@ -1,7 +1,9 @@
 """.thrm text format: header + one line per record.
 
 Counterpart of ``neuralmelting_tpu.io.thermo``, byte for byte the JAX
-package's Python writer (its native writer writes the same bytes):
+package's writers. ``write`` takes the native writer (``io/native``) when
+it is built and the Python writer (``write_header`` + ``append_records``,
+the reference) otherwise; both give the same bytes:
 
     # nm-thrm-1
     # <key> <value>            (one per header item, echoing run parameters)
@@ -11,10 +13,13 @@ package's Python writer (its native writer writes the same bytes):
 
 from __future__ import annotations
 
+import io as _io
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from neuralmelting_tpu_torch.io import native
 
 COLUMNS = ("sweep", "temp", "press", "pe", "ke", "virial", "vol",
            "acc_pos", "acc_vol", "acc_hmc", "dpos", "dvol", "dt")
@@ -45,6 +50,13 @@ def append_records(f, records):
 
 def write(path: str, records, params: Optional[Dict] = None,
           append: bool = False):
+    data = np.stack([np.asarray(_np(records[c]), np.float64).reshape(-1)
+                     for c in COLUMNS], axis=1)
+    hdr = _io.StringIO()
+    if not append:
+        write_header(hdr, params)
+    if native.write_thermo_rows(path, data, hdr.getvalue(), append):
+        return
     with open(path, "a" if append else "w") as f:
         if not append:
             write_header(f, params)

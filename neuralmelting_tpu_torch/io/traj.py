@@ -1,7 +1,10 @@
 """.traj text format: per-frame header + coordinates.
 
 Counterpart of ``neuralmelting_tpu.io.traj``, byte for byte the JAX
-package's Python writer (its native writer writes the same bytes):
+package's writers. ``write`` and ``read`` take the native library
+(``io/native``) when it is built, else their Python code (the reference);
+the bytes written are the same either way, and the native reader returns
+the f32 values the writer printed, as the JAX package's does:
 
     # nm-traj-1
     <natoms> <box_x> <box_y> <box_z> <sweep>
@@ -15,6 +18,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from neuralmelting_tpu_torch.io import native
 
 MAGIC = "# nm-traj-1"
 
@@ -30,6 +35,8 @@ def write(path: str, positions, boxes, sweeps=None, append: bool = False):
     nframes, natoms, _ = positions.shape
     sweeps = np.zeros((nframes,), np.int64) if sweeps is None \
         else _np(sweeps)
+    if native.write_traj(path, positions, boxes, sweeps, append):
+        return
     with open(path, "a" if append else "w") as f:
         if not append:
             f.write(MAGIC + "\n")
@@ -43,6 +50,9 @@ def write(path: str, positions, boxes, sweeps=None, append: bool = False):
 
 def read(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Parse a .traj file -> (positions (F,N,3), boxes (F,3), sweeps (F,))."""
+    out = native.read_traj(path)
+    if out is not None:
+        return out
     frames: List[np.ndarray] = []
     boxes: List[np.ndarray] = []
     sweeps: List[int] = []

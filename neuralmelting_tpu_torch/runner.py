@@ -1,5 +1,6 @@
-"""Host-side run orchestration: config -> ensemble -> chunks (counterpart of
-``neuralmelting_tpu.runner``, its single-process cellmc path, LJ and EAM).
+"""Host-side run orchestration: config -> ensemble -> chunks -> files
+(counterpart of ``neuralmelting_tpu.runner``, its single-process cellmc
+path, LJ and EAM).
 
 Builds the potential and the replica ensemble from a ``RunConfig`` on a
 ``device`` (the card unless the caller passes ``device="cpu"``), bins it
@@ -8,14 +9,15 @@ maintenance (kcap hysteresis, cell-grid refresh) and the slab-overflow
 retry from a pre-chunk snapshot. LJ runs on stride-2 cells with kernels
 B1/B2; EAM ("eam/alloy", element "AL") samples the Chebyshev refit of
 its setfl table on stride-3 cells with one mover per cell and a density
-slab, kernels B3/B4.
+slab, kernels B3/B4. A chunk can log a ``sampling_chunk`` metrics event,
+write the per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a
+checkpoint (``io/checkpoint.py``) that ``restore_setup`` resumes exactly.
 
 Not here yet, each named with the ROADMAP item that brings it: the
-gather/serial engines (A13), the dense engine (A14, not ported), slot
-files and checkpoints (A7), coexistence runs without exchange beyond the
-plain ``exchange=False`` chunk (A10), multi-GPU (A12). Unlike the JAX
-runner there is no compile cache (nothing is traced) and no scoped-VMEM
-guard (a TPU compiler limit).
+gather/serial engines (A13), the dense engine (A14, not ported),
+coexistence runs without exchange beyond the plain ``exchange=False``
+chunk (A10), multi-GPU (A12). Unlike the JAX runner there is no compile
+cache (nothing is traced) and no scoped-VMEM guard (a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 
 from neuralmelting_tpu_torch import units
 from neuralmelting_tpu_torch.config import ELEMENTS, RunConfig, grids
+from neuralmelting_tpu_torch.io import checkpoint as ckpt
+from neuralmelting_tpu_torch.io import naming, thermo, traj
 from neuralmelting_tpu_torch.models import eam as eam_mod
 from neuralmelting_tpu_torch.models import eam_cheb, eam_gen
 from neuralmelting_tpu_torch.models.lattice import make_supercell
@@ -176,6 +180,21 @@ def _bin_tightened(geom, states, shift):
     return geom, slabs, slab_count, over
 
 
+def _install_slabs(setup: RunSetup, geom, slabs, slab_count,
+                   shift) -> RunSetup:
+    """The setup on these slabs of ``geom``, with exact pe/virial from
+    them (and, for EAM, the density slab)."""
+    if setup.style == "eam":
+        states, slabs = _eam_rho(geom, setup.states, slabs, setup.pot,
+                                 setup.device)
+    else:
+        states = SC.refresh_energies(geom, setup.states, slabs, setup.pot)
+    return dataclasses.replace(
+        setup, geom=geom, slabs=slabs, slab_count=slab_count, shift=shift,
+        cell_tabs=torch.as_tensor(CG.geom_tables(geom), device=setup.device),
+        states=states)
+
+
 def _rebind_cellmc(setup: RunSetup, geom) -> RunSetup:
     """Re-bin the CURRENT ensemble (positions exact at a chunk boundary)
     into slabs for a new geometry; grows kcap once more if the new cap
@@ -188,15 +207,69 @@ def _rebind_cellmc(setup: RunSetup, geom) -> RunSetup:
         slabs, slab_count, over = SC.build_slabs(geom, setup.states, shift)
         if bool(over):
             raise RuntimeError("cell slot overflow persists after rebuild")
-    if setup.style == "eam":
-        states, slabs = _eam_rho(geom, setup.states, slabs, setup.pot,
-                                 setup.device)
+    return _install_slabs(setup, geom, slabs, slab_count, shift)
+
+
+def checkpoint_extras(setup: RunSetup) -> dict:
+    """What an exact resume needs beyond the states and ``slot_of``: the
+    host generator's state and device, and the slabs as the chunk left
+    them (geometry, grid shift, coordinates in the shifted frame and the
+    atom of every slot). The density slab of EAM is recomputed at
+    restore, as exactly as the last record computed it."""
+    g = setup.geom
+    return {"gen_state": setup.gen.get_state(),
+            "gen_device": np.str_(setup.device.type),
+            "geom": np.asarray(list(g.ncell) + [g.kcap], np.int32),
+            "shift": setup.shift,
+            "slab_xyz": torch.stack(tuple(setup.slabs[:3]), dim=1),
+            "slab_ids": setup.slabs[3]}
+
+
+def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
+    """Resume from a checkpoint: replaces the states and ``slot_of`` and
+    rebuilds every position-derived structure from the restored
+    ensemble, never from the lattice of ``setup``. A port checkpoint
+    brings its slabs, grid shift and generator state, so the run goes on
+    as if it had not stopped; a JAX package checkpoint has none of them:
+    its positions are re-binned at shift 0 through ``_rebind_cellmc``
+    (whose kcap grow-and-retry absorbs a compressed box) and the
+    generator restarts from ``cfg.seed``, with a warning. Warns when the
+    stored config differs from the current one."""
+    states, slot_of, cfg_json, extra = ckpt.load(checkpoint_path,
+                                                 setup.device)
+    if cfg_json not in ("{}", setup.cfg.to_json()):
+        warnings.warn("checkpoint was written with a different RunConfig; "
+                      "proceeding with the current flags", stacklevel=2)
+    if states.pos.shape != setup.states.pos.shape:
+        raise ValueError(
+            f"checkpoint ensemble {tuple(states.pos.shape)} does not fit "
+            f"this run's {tuple(setup.states.pos.shape)} (replicas, atoms)")
+    gen = torch.Generator(device=setup.device)
+    saved = str(extra.get("gen_device", ""))
+    if "gen_state" in extra and saved == setup.device.type:
+        gen.set_state(torch.as_tensor(extra["gen_state"]))
     else:
-        states = SC.refresh_energies(geom, setup.states, slabs, setup.pot)
-    return dataclasses.replace(
-        setup, geom=geom, slabs=slabs, slab_count=slab_count, shift=shift,
-        cell_tabs=torch.as_tensor(CG.geom_tables(geom), device=setup.device),
-        states=states)
+        gen.manual_seed(int(setup.cfg.seed))
+        why = (f"its generator ran on {saved!r}" if saved
+               else "it holds no generator state")
+        warnings.warn(f"checkpoint {checkpoint_path}: {why}; the host "
+                      f"draws restart from seed {setup.cfg.seed}",
+                      RuntimeWarning, stacklevel=2)
+    setup = dataclasses.replace(setup, states=states, slot_of=slot_of,
+                                gen=gen)
+    if "slab_ids" not in extra:
+        return _rebind_cellmc(setup, setup.geom)
+    nx, ny, nz, kcap = (int(v) for v in extra["geom"])
+    geom = dataclasses.replace(setup.geom, ncell=(nx, ny, nz), kcap=kcap)
+    dev = setup.device
+    xyz = torch.as_tensor(extra["slab_xyz"], dtype=torch.float32,
+                          device=dev)
+    ids = torch.as_tensor(extra["slab_ids"], dtype=torch.int32, device=dev)
+    count = (ids >= 0).reshape(ids.shape[0], geom.ncells, kcap).sum(
+        dim=2, dtype=torch.int32)
+    shift = torch.as_tensor(extra["shift"], dtype=torch.float32, device=dev)
+    slabs = tuple(xyz[:, a].contiguous() for a in range(3)) + (ids,)
+    return _install_slabs(setup, geom, slabs, count, shift)
 
 
 def _refresh_cellmc_geom(setup: RunSetup) -> RunSetup:
@@ -242,16 +315,23 @@ def nvol_per_sweep(cfg: RunConfig, natoms: int) -> int:
     return max(1, min(4, int(round(cfg.pvol * natoms / 32))))
 
 
-def run_sampling(setup: RunSetup, nrecords: Optional[int] = None,
-                 write_traj: bool = True, exchange: bool = True):
+def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
+                 write_files: bool = True,
+                 checkpoint_path: Optional[str] = None,
+                 nrecords: Optional[int] = None, write_traj: bool = True,
+                 metrics=None, exchange: bool = True):
     """Advance the ensemble ``nrecords`` record blocks (one chunk).
 
     Returns (setup, recs, frames, hist, xacc, diag): recs fields (nrec, R)
     replica-ordered, frames (positions (nrec, R, N, 3), boxes (nrec, R, 3))
     or None, hist (nrec, R) the replica -> slot map at each record, xacc
     (nrec,) accepted swaps, diag the chunk's diagnostic bits (int).
-    ``exchange=False`` keeps every replica on its slot.
+    ``exchange=False`` keeps every replica on its slot. Then, as in the
+    JAX runner: a ``sampling_chunk`` event to ``metrics`` (a
+    ``utils.MetricsLogger``), the slot files into ``outdir`` when
+    ``write_files``, and a checkpoint to ``checkpoint_path``.
     """
+    t0 = time.time()
     cfg = setup.cfg
     npress, ntemp = len(setup.press), len(setup.temp)
     nrecords = nrecords or cfg.nsmpl
@@ -312,7 +392,52 @@ def run_sampling(setup: RunSetup, nrecords: Optional[int] = None,
     setup = dataclasses.replace(
         setup, states=states, slabs=slabs, slab_count=slab_count,
         shift=shift, slot_of=slot_of, moves_tried=setup.moves_tried + tried)
+    if metrics is not None:
+        metrics.log("sampling_chunk", records=int(nrecords),
+                    replicas=int(hist.shape[1]), natoms=setup.natoms,
+                    seconds=round(time.time() - t0, 3), diag=diag_host,
+                    exchange_acc=[int(x) for x in xacc.tolist()])
+    if write_files and outdir is not None:
+        os.makedirs(outdir, exist_ok=True)
+        write_slot_files(cfg, outdir, recs, frames, hist, npress, ntemp,
+                         setup.natoms)
+    if checkpoint_path:
+        ckpt.save(checkpoint_path, setup.states, setup.slot_of,
+                  cfg.to_json(), checkpoint_extras(setup))
     return setup, recs, frames, hist, xacc, diag_host
+
+
+def write_slot_files(cfg: RunConfig, outdir: str, recs, frames, hist,
+                     npress: int, ntemp: int, natoms: int):
+    """Distribute replica-ordered records into per-(P, T)-slot text files:
+    one argsort of ``hist`` for every record, one host copy of each
+    record field and of the frames for the whole chunk."""
+    el = ELEMENTS[cfg.element]
+    hist = hist.cpu().numpy()                    # (nrec, R) replica->slot
+    nrec, r = hist.shape
+    rec_np = {c: getattr(recs, c).cpu().numpy() for c in thermo.COLUMNS}
+    if frames is not None:
+        pos_np = frames[0].cpu().numpy()         # (nrec, R, N, 3)
+        box_np = frames[1].cpu().numpy()         # (nrec, R, 3)
+    # sel_all[k, slot] = the replica holding ``slot`` at record k
+    sel_all = np.argsort(hist, axis=1)
+    recs_idx = np.arange(nrec)
+    rows_all = {c: rec_np[c][recs_idx[:, None], sel_all]
+                for c in thermo.COLUMNS}         # (nrec, R) slot-ordered
+    for slot in range(r):
+        p_idx, t_idx = divmod(slot, ntemp)
+        prefix = naming.sample_prefix(cfg.name, cfg.element, el.lattice,
+                                      cfg.ncells, p_idx, t_idx)
+        tpath, jpath = naming.sample_paths(outdir, prefix)
+        sel = sel_all[:, slot]
+        rows = {c: rows_all[c][:, slot] for c in thermo.COLUMNS}
+        params = {"element": cfg.element, "natoms": natoms,
+                  "press_idx": p_idx, "temp_idx": t_idx,
+                  "config": cfg.to_json()}
+        thermo.write(tpath, rows, params=params)
+        if frames is not None and cfg.write_traj:
+            traj.write(jpath, pos_np[recs_idx, sel], box_np[recs_idx, sel],
+                       sweeps=rows["sweep"].astype(np.int64))
 
 
 def timed(device: torch.device):

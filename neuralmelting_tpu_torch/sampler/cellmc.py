@@ -182,7 +182,8 @@ def _rebin(geom, rebin_every, sweep_id, slabs4, count, shift, box,
 
 
 def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
-                  exchange, npress, ntemp, kin_of, sweep_step, record_totals):
+                  exchange, npress, ntemp, adapt, kin_of, sweep_step,
+                  record_totals):
     """The chunk loops of both engines around their ``sweep_step``.
 
     ``kin_of(pot, device)``: the kernels' inputs of a chunk;
@@ -201,7 +202,8 @@ def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
         pos = CG.unbin(geom, slabs, states.box, shift)
         states = states.replace(pe=pe, virial=w, pos=pos)
         rec = make_record(states, kb)
-        states = adapt_step_sizes(states, targets=targets, factor=factor)
+        if adapt:       # bench runs keep the counters accumulating instead
+            states = adapt_step_sizes(states, targets=targets, factor=factor)
         frame = (states.pos, states.box.clone()) if write_traj else None
         return (states, slabs, count, shift, diag, tried), rec, frame
 
@@ -279,7 +281,8 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
                        targets=(0.5, 0.5, 0.5), factor: float = 1.0625,
                        write_traj: bool = False, exchange: bool = False,
                        npress: int = 0, ntemp: int = 0,
-                       vol_every: int = 1, rebin_every: int = 1):
+                       vol_every: int = 1, rebin_every: int = 1,
+                       adapt: bool = True):
     """Build the LJ chunk runner.
 
     Without exchange:
@@ -301,7 +304,9 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
     ``vol_every``/``rebin_every``: the ``nvol`` volume trials run only on
     sweeps with ``sweep % vol_every == 0``, the grid-shift rebin only where
     ``sweep % rebin_every == 0`` (deterministic, state-independent
-    schedules that leave the NPT distribution invariant).
+    schedules that leave the NPT distribution invariant). ``adapt=False``
+    skips the step-size adaptation at each record, so the acceptance
+    counters accumulate over the chunk (the bench counts moves from them).
     """
 
     def sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles):
@@ -360,7 +365,7 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
         return e, w, slabs
 
     return _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor,
-                         write_traj, exchange, npress, ntemp,
+                         write_traj, exchange, npress, ntemp, adapt,
                          lambda pot, dev: (pot, pot.pot3(dev)), sweep_step,
                          record_totals)
 
@@ -374,7 +379,8 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
                     targets=(0.5, 0.5, 0.5), factor: float = 1.0625,
                     write_traj: bool = False, exchange: bool = False,
                     npress: int = 0, ntemp: int = 0,
-                    vol_every: int = 1, rebin_every: int = 1):
+                    vol_every: int = 1, rebin_every: int = 1,
+                    adapt: bool = True):
     """EAM twin of ``make_cellmc_run_fn``, with the same two signatures;
     ``pot`` is the ``EAMCheb`` (models/eam_cheb.py) and ``slabs`` =
     (x, y, z, ids, rho) leading-R, rho the per-slot density cache (exact
@@ -450,6 +456,6 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
         return st[:, 0], st[:, 1], slabs[:4] + (rho,)
 
     return _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor,
-                         write_traj, exchange, npress, ntemp,
+                         write_traj, exchange, npress, ntemp, adapt,
                          lambda pot, dev: CE.eam_pack(pot, dev)[:2],
                          sweep_step, record_totals)
