@@ -22,7 +22,12 @@ Phases, in order (any failed check exits non-zero):
                    B1/B2 launch counters are zeroed before and read after,
                    and each kernel must have run;
   5. physics     — the docs/VALIDATION.md LJ config (256 atoms, P*=(1,5),
-                   12 temperatures) through the port: T_m(P*=1) against 0.78;
+                   12 temperatures) through the port as the chains of
+                   seeds 7-14 (7 the document's): every chain diag 0, the
+                   chains' mean T_m(P*=1) within 2% of 0.78 and within 4
+                   standard errors of the JAX gather engine's chains of
+                   the same seeds (tests/golden/lj_validation_gather.json,
+                   tests/make_lj_validation.py); seed 7's T_m printed;
   EAM path (kernels B3 sweep, B4 total; the rc=3.8 synthetic Al table,
   written to a temp directory at run time):
   6. eam-small   — B4 and B3 against their plain versions at 4x4x4 fcc Al
@@ -62,6 +67,35 @@ Phases, in order (any failed check exits non-zero):
                    at its full configuration (its JSON line printed as it
                    is): every row's diag 0 and rate > 0; B1-B4 counters
                    zeroed before and read after, each > 0;
+  The production drivers (B1/B2 for LJ, B3/B4 for EAM; the counters
+  zeroed before each run and read after, each > 0):
+  8c. northstar  — python -m neuralmelting_tpu_torch.northstar at full
+                   scale (32x32 (P, T) x 4096 LJ atoms, 6 eq + 4 samp
+                   chunks of 5 records x 20 sweeps): diag 0, 32 resolved
+                   rows, T_m(P*=1) within 2% of 0.78; points/hour, the
+                   breakdown and T_m(P) beside the JAX package's
+                   northstar_result.json; then C7 on the card: g(r) pair
+                   counts of the near-edge recomputation equal the
+                   whole-block emulation's on 64 jittered 4096-atom
+                   frames, with both times a frame; then --cool at full
+                   width cut to 1 eq + 1 samp chunk a leg (diag 0, the
+                   cool leg's T_m reported); then --fast stopped before
+                   its first samp chunk and resumed (attempts_to_complete
+                   2, diag 0);
+  8d. coexist    — coexist_run for LJ at its defaults (16x8x8 = 4096
+                   atoms, 13 T x 3 rows, prep at 8x8x8, relax 3, up to 40
+                   measured chunks with the early stop), then EAM Al at
+                   full width cut to --relax 1 --chunks 4: diag 0; in
+                   every coexistence chunk no swap and every replica on
+                   its slot; in the first chunk after the splice the
+                   solid row's PE/atom below the liquid row's at every T
+                   (that gap also printed for the first measured chunk,
+                   where the reference protocol's liquid row has frozen:
+                   ROADMAP C9); finite liquid fractions; the bracket and
+                   `consistent` reported (no gate on their values);
+  8e. sweep      — bench.melting_sweep (config 3: 256 Al atoms, 10 T,
+                   30 records of 15 sweeps): diag 0, a finite T_m;
+                   points/hour;
   9. eam-physics — docs/VALIDATION.md config 3, the heating leg as
                    scripts/eam_tm_ab.py pins it, as 8 chains (seeds 5-12)
                    held to the JAX gather engine's chains of the same
@@ -125,7 +159,9 @@ bound_ms, from its bytes over 3.35 TB/s or its f32 operations over
 67 TFLOP/s, whichever is larger; B3's and B4's entries also carry
 chunk_kcap and chunk_ms, the time at the chunks' K, B4's also ms_virial,
 bound_ms_virial and chunk_ms_virial; B1-B4's entries carry launches_cli
-and launches_bench, their launches in the cli and bench phases), and
+and launches_bench, their launches in the cli and bench phases, and
+launches_northstar (B1, B2), launches_coexist (B1-B4) and
+launches_sweep (B3, B4), their launches in those phases' main runs), and
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it
 exits non-zero and prints no result. Imports nothing of jax or of the JAX
@@ -151,7 +187,10 @@ import numpy as np
 import torch
 
 from neuralmelting_tpu_torch import bench as BENCH
+from neuralmelting_tpu_torch import coexist as CX
+from neuralmelting_tpu_torch import coexist_run as COEXIST_RUN
 from neuralmelting_tpu_torch import golden as GOLD
+from neuralmelting_tpu_torch import northstar as NS
 from neuralmelting_tpu_torch import probe as P1
 from neuralmelting_tpu_torch import runner
 from neuralmelting_tpu_torch.cli import neural as CLI_NEURAL
@@ -160,6 +199,7 @@ from neuralmelting_tpu_torch.cli import post as CLI_POST
 from neuralmelting_tpu_torch.cli import rdf as CLI_RDF
 from neuralmelting_tpu_torch.cli import remcmc as CLI_REMCMC
 from neuralmelting_tpu_torch.config import RunConfig
+from neuralmelting_tpu_torch.features import rdf as RDF
 from neuralmelting_tpu_torch.io import native, thermo, traj
 from neuralmelting_tpu_torch.models import eam as eam_mod
 from neuralmelting_tpu_torch.models import eam_cheb, eam_gen
@@ -215,6 +255,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(HERE, "eam_config3_gather.json")
 # the JAX serial engine's config-1 run (tests/make_golden.py)
 GOLDEN = os.path.join(HERE, "tests", "golden")
+# the JAX gather engine's chains of the LJ validation config
+# (tests/make_lj_validation.py)
+LJ_REFERENCE = os.path.join(GOLDEN, "lj_validation_gather.json")
 Z_PHYS = 4.0            # standard errors allowed between port and JAX
 CLF_SEEDS = range(4)    # classifier initial weights per chain
 KB_EV = 8.617333262e-5
@@ -227,6 +270,7 @@ RESTART_TOL = 0.25
 ERR = {k: 0.0 for k in KERNELS}
 TIMES = {}
 BOUND = {}
+STAGE_S = {}            # host seconds of pipeline stages, by name
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 operations/s
 # outside the tensor cores
 HBM_BPS = 3.35e12
@@ -640,6 +684,8 @@ def phase_main(name):
     log(f"[main] diag={res.diag} launches={launches} moves_tried="
         f"{res.moves_tried} T_m(P) first/last={res.tm[0]:.4f}/"
         f"{res.tm[-1]:.4f}")
+    STAGE_S["main_features"] = s["features"]
+    STAGE_S["main_frames"] = res.records.pe.numel()      # records x R
     log(f"[main] attempted moves/s {rate:.4e} (sampling incl. setup "
         f"{s['sampling']:.3f} s, features {s['features']:.3f} s, classifier "
         f"{s['classifier']:.3f} s) on {name}")
@@ -657,23 +703,63 @@ def phase_main(name):
           "[main] record pe/N not finite and negative")
 
 
+def validation_cfg(seed):
+    """The docs/VALIDATION.md LJ configuration with the chain seed given
+    (the document's is 7)."""
+    return RunConfig(name="val", element="LJ", ncells=(4, 4, 4), npress=2,
+                     ntemp=12, press=(1.0, 5.0),
+                     temp=tuple(np.linspace(0.55, 1.45, 12)), nsmpl=40,
+                     mod=20, ncut=15, seed=seed, dpos0=0.1, dvol0=0.01)
+
+
 def phase_physics(name):
-    cfg = RunConfig(name="val", element="LJ", ncells=(4, 4, 4), npress=2,
-                    ntemp=12, press=(1.0, 5.0),
-                    temp=tuple(np.linspace(0.55, 1.45, 12)), nsmpl=40,
-                    mod=20, ncut=15, seed=7, dpos0=0.1, dvol0=0.01)
+    """The docs/VALIDATION.md LJ config (melting_pipeline, nbins 48, MLP,
+    400 epochs, band 2) as the chains of seeds 7-14 that
+    tests/make_lj_validation.py ran through the JAX gather engine
+    (tests/golden/lj_validation_gather.json). One chain's T_m(P*=1)
+    spreads by ~0.01-0.013 from seed to seed, on either side, about the
+    width of the 2% band, so seed 7's value is printed with its own
+    verdict and the gates are: every chain diag 0 with a finite T_m; the
+    chains' mean T_m(P*=1) within 2% of 0.78; and within Z_PHYS standard
+    errors of the JAX chains' mean."""
+    with open(LJ_REFERENCE) as f:
+        ref = json.load(f)
     t = time.perf_counter()
-    res = melting_pipeline(cfg, nbins=48, model="mlp", epochs=400, band=2,
-                           engine="cellmc")
+    tms = []
+    for seed in ref["chain_seeds"]:
+        res = melting_pipeline(validation_cfg(seed), nbins=48, model="mlp",
+                               epochs=400, band=2, engine="cellmc")
+        check(res.diag == 0 and np.isfinite(res.tm).all(),
+              f"[physics] seed {seed}: diag {res.diag}, T_m {res.tm}")
+        tms.append(res.tm)
     dt = time.perf_counter() - t
-    tm1 = float(res.tm[0])
-    err = abs(tm1 / 0.78 - 1.0)
-    log(f"[physics] T_m(P*=1)={tm1:.4f} T_m(P*=5)={float(res.tm[1]):.4f} "
-        f"diag={res.diag}; |T_m(1)/0.78 - 1| = {err:.4f} "
-        f"(gate 0.02: {'PASS' if err <= 0.02 else 'MISS'}); {dt:.1f} s "
-        f"on {name}")
-    check(res.diag == 0 and math.isfinite(tm1), "[physics] diag/T_m")
-    check(err <= 0.02, f"[physics] T_m(P*=1)={tm1} misses the 2% gate")
+    tms = np.asarray(tms)
+    tm1, tm5 = float(tms[0, 0]), float(tms[0, 1])
+    err1 = abs(tm1 / 0.78 - 1.0)
+    log(f"[physics] seed {ref['chain_seeds'][0]}: T_m(P*=1)={tm1:.4f} "
+        f"T_m(P*=5)={tm5:.4f}; |T_m(1)/0.78 - 1| = {err1:.4f} (one chain: "
+        f"{'inside' if err1 <= 0.02 else 'outside'} 2%)")
+    port = tms[:, 0]
+    jax_tm = np.asarray([c["tm"][0] for c in ref["chains"]])
+    mean = float(port.mean())
+    err = abs(mean / 0.78 - 1.0)
+    se = math.sqrt(port.var(ddof=1) / len(port)
+                   + jax_tm.var(ddof=1) / len(jax_tm))
+    z = (mean - float(jax_tm.mean())) / se
+    log(f"[physics] T_m(P*=1) by chain (seeds {ref['chain_seeds']}): port "
+        f"{np.round(port, 4).tolist()}, JAX gather "
+        f"{np.round(jax_tm, 4).tolist()}; chains outside 2% of 0.78: port "
+        f"{int((np.abs(port / 0.78 - 1) > 0.02).sum())}, JAX "
+        f"{int((np.abs(jax_tm / 0.78 - 1) > 0.02).sum())} of {len(port)}")
+    log(f"[physics] mean T_m(P*=1) port {mean:.4f} (sd "
+        f"{port.std(ddof=1):.4f}), JAX {jax_tm.mean():.4f} (sd "
+        f"{jax_tm.std(ddof=1):.4f}); |mean/0.78 - 1| = {err:.4f} (gate "
+        f"0.02: {'PASS' if err <= 0.02 else 'MISS'}); port - JAX "
+        f"{mean - jax_tm.mean():+.4f}, z {z:.2f} (limit {Z_PHYS}); mean "
+        f"T_m(P*=5) {tms[:, 1].mean():.4f}; {dt:.1f} s on {name}")
+    check(err <= 0.02, f"[physics] mean T_m(P*=1)={mean} misses the 2% gate")
+    check(abs(z) < Z_PHYS, f"[physics] mean T_m(P*=1) differs from the JAX "
+          f"chains': z {z:.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1107,6 +1193,247 @@ def phase_bench(name):
         check(row[k] > 0, f"[bench] {k} {row[k]}")
     check(all(v > 0 for v in launches.values()),
           f"[bench] a kernel never launched: {launches}")
+
+
+# ---------------------------------------------------------------------------
+# the production drivers: north star, coexistence, the EAM melting sweep
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def watch_sampling(stop_at=None):
+    """Record every runner.run_sampling chunk of the block (replicas,
+    hist, xacc on the host, record pe); raise StopRun at call
+    ``stop_at`` (1-based) instead of sampling it."""
+    calls = []
+    inner = runner.run_sampling
+
+    def watched(*a, **kw):
+        if stop_at is not None and len(calls) + 1 == stop_at:
+            raise StopRun(f"stopped before chunk {stop_at}")
+        out = inner(*a, **kw)
+        _setup, recs, _frames, hist, xacc, diag = out
+        calls.append(SimpleNamespace(
+            replicas=int(hist.shape[1]), hist=hist.cpu().numpy(),
+            xacc=xacc.cpu().numpy(), pe=recs.pe.double().cpu().numpy(),
+            diag=diag))
+        return out
+
+    runner.run_sampling = watched
+    try:
+        yield calls
+    finally:
+        runner.run_sampling = inner
+
+
+class StopRun(RuntimeError):
+    pass
+
+
+def rdf_variants(name):
+    """C7 on the card: g(r) pair counts of the near-edge recomputation
+    (the production path) equal the whole-block emulation's on 64 frames
+    of jittered 4096-atom fcc; times of both a frame (CUDA events), and
+    what the whole-block form would add to [main]'s features seconds."""
+    pos, box = make_supercell("fcc", 2.0 ** (2.0 / 3.0) * 1.03, (16, 8, 8))
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    p = torch.as_tensor(pos, device=DEV)[None] + 0.12 * torch.randn(
+        (64,) + pos.shape, generator=gen, device=DEV)
+    b = torch.as_tensor(box, dtype=torch.float32, device=DEV)
+    p = torch.remainder(p, b)
+    b = b.expand(64, 3).contiguous()
+    rmax = 0.48 * float(box.min())
+    near = RDF._pair_counts(p, b, 64, rmax, 1 << 25)
+    whole = RDF._pair_counts(p, b, 64, rmax, 1 << 25, whole_block=True)
+    check(torch.equal(near, whole), "[northstar] C7: near-edge and "
+          "whole-block pair counts differ on the card")
+    ms = {}
+    for tag, wb in (("near-edge", False), ("whole-block", True)):
+        # in rdf_frames' batches of 16 frames
+        ms[tag] = cuda_ms(lambda: [RDF._pair_counts(
+            p[i:i + 16], b[i:i + 16], 64, rmax, 1 << 25, wb)
+            for i in range(0, 64, 16)], 3) / 64
+    frames, feat_s = STAGE_S["main_frames"], STAGE_S["main_features"]
+    extra = (ms["whole-block"] - ms["near-edge"]) * frames / 1e3
+    log(f"[northstar] C7 g(r) a 4096-atom frame (64 frames, CUDA events): "
+        f"near-edge {ms['near-edge']:.4f} ms, whole-block "
+        f"{ms['whole-block']:.4f} ms; whole-block over [main]'s {frames} "
+        f"frames adds {extra:.3f} s = {100 * extra / feat_s:.1f}% of its "
+        f"features {feat_s:.3f} s; counts equal on {name}")
+
+
+def launches_of(keys):
+    return {k: {**CK.LAUNCHES, **CE.LAUNCHES}[k] for k in keys}
+
+
+def phase_northstar(name):
+    """python -m neuralmelting_tpu_torch.northstar at full scale: the
+    heating leg (32x32 x 4096 LJ atoms, 600 + 400 sweeps), then --cool at
+    full width cut to 1 eq + 1 samp chunk, then a stopped and resumed
+    --fast run."""
+    tmp = tempfile.mkdtemp(prefix="nm_ns_")
+    with open(os.path.join(HERE, "northstar_result.json")) as f:
+        jax_ref = json.load(f)
+    CK.reset_launches()
+    t = time.perf_counter()
+    res = NS.run(NS.make_cfg(), os.path.join(tmp, "st"),
+                 os.path.join(tmp, "ns.json"), device=DEV,
+                 **NS.schedule())
+    dt = time.perf_counter() - t
+    launches = launches_of(("sweep", "total"))
+    for k, v in launches.items():
+        KERNELS[k]["launches_northstar"] = v
+    bd = res["breakdown"]
+    log(f"[northstar] diag={res['diag']} launches={launches}; "
+        f"{res['points_per_hour']:.1f} (P,T)-points/hour "
+        f"({res['points_per_hour_steady']:.1f} steady), total "
+        f"{res['total_seconds']} s: eq {res['eq_seconds']} s, samp "
+        f"{res['sample_seconds']} s (sampling {bd['kernel_seconds']} s all "
+        f"chunks, featurize {bd['featurize_seconds']} s, checkpoint "
+        f"{bd['checkpoint_seconds']} s x {bd['checkpoint_count']}), train "
+        f"{bd['train_seconds']} s, preflight {res['preflight_seconds']} s, "
+        f"first-chunk excess {bd['first_chunk_excess_seconds']} s; "
+        f"{res['moves_per_sec_nominal']:.4e} nominal moves/s; {dt:.1f} s "
+        f"in all on {name}")
+    log("[northstar] chunk log: " + json.dumps(bd["chunk_log"]))
+    ref_tm = jax_ref["tm_by_pressure"]
+    log("[northstar] T_m(P*) port / JAX package's northstar_result.json "
+        "(physics, not speed): " + ", ".join(
+            f"{p} {tm:.4f}/{ref_tm.get(p, float('nan')):.4f}"
+            for p, tm in res["tm_by_pressure"].items()))
+    log(f"[northstar] T_m(P*=1) {res['tm_p1']:.4f}, |T_m/0.78 - 1| "
+        f"{res['tm_p1_rel_err']:.4f} (gate 0.02), resolved rows "
+        f"{res['heat_resolved_rows']}/32")
+    check(res["diag"] == 0, f"[northstar] diag {res['diag']}")
+    check(res["heat_resolved_rows"] == 32,
+          f"[northstar] {res['heat_resolved_rows']} resolved rows, not 32")
+    check(res["pass_2pct"], f"[northstar] T_m(P*=1)={res['tm_p1']} misses "
+          "the 2% gate")
+    check(all(v > 0 for v in launches.values()),
+          f"[northstar] a kernel never launched: {launches}")
+    rdf_variants(name)
+
+    t = time.perf_counter()
+    cool = NS.run(NS.make_cfg(), os.path.join(tmp, "st_cool"),
+                  os.path.join(tmp, "ns_cool.json"), eq_chunks=1,
+                  samp_chunks=1, records=5, cool=True, device=DEV)
+    br = cool["bracket"]
+    log(f"[northstar] --cool, 1 eq + 1 samp chunk a leg: diag "
+        f"{br['diag']}; T_m(P*=1) heat {cool['tm_p1']:.4f}, bracket "
+        f"{br['tm_bracket_p1']}, cool resolved rows "
+        f"{br['cool_resolved_rows']}/32, T_cool by P* "
+        f"{br['tm_cool_by_pressure']}; cool leg {br['cool_seconds']} s, "
+        f"{time.perf_counter() - t:.1f} s in all")
+    check(br["diag"] == 0, f"[northstar] --cool diag {br['diag']}")
+
+    state = os.path.join(tmp, "st_fast")
+    out = os.path.join(tmp, "ns_fast.json")
+    eq = NS.schedule(fast=True)["eq_chunks"]
+    with watch_sampling(stop_at=eq + 1):
+        try:
+            NS.run(NS.make_cfg(fast=True), state, out, device=DEV,
+                   **NS.schedule(fast=True))
+            check(False, "[northstar] the first --fast attempt was not "
+                  "stopped")
+        except StopRun:
+            pass
+    with open(os.path.join(state, "progress.json")) as f:
+        prog = json.load(f)
+    fast = NS.run(NS.make_cfg(fast=True), state, out, device=DEV,
+                  **NS.schedule(fast=True))
+    log(f"[northstar] --fast stopped after its eq stage (eq_done "
+        f"{prog['eq_done']}, samp_done {prog['samp_done']}) and resumed: "
+        f"attempts_to_complete {fast['attempts_to_complete']}, diag "
+        f"{fast['diag']}, T_m(P*=1) {fast['tm_p1']:.4f}")
+    check((prog["eq_done"], prog["samp_done"]) == (eq, 0),
+          f"[northstar] progress after the stop {prog}")
+    check(fast["attempts_to_complete"] == 2 and fast["diag"] == 0,
+          f"[northstar] resume: attempts {fast['attempts_to_complete']}, "
+          f"diag {fast['diag']}")
+
+
+def coexist_gates(tag, calls, out):
+    """diag 0; xacc 0 and hist the identity in every coexistence chunk;
+    finite liquid fractions; in the first chunk after the splice, the
+    solid row's PE/atom below the liquid row's at every T. The liquid
+    row's gap over the solid row is printed for that chunk and for the
+    first measured one: the reference protocol tiles the prepared liquid
+    into the lattice box (density 1.0 for LJ), where it freezes during
+    the relaxation chunks (ROADMAP C9), so no gate can hold there."""
+    ntemp, relax = out["ntemp"], out["relax_chunks"]
+    chunks = [c for c in calls if c.replicas == 3 * ntemp]
+    ident = np.arange(3 * ntemp)
+    check(out["diag"] == 0 and all(c.diag == 0 for c in calls),
+          f"[coexist] {tag} diag {out['diag']}")
+    check(len(chunks) == relax + out["measured_chunks"],
+          f"[coexist] {tag}: {len(chunks)} chunks")
+    check(all(int(c.xacc.sum()) == 0 and (c.hist == ident).all()
+              for c in chunks), f"[coexist] {tag}: a swap or a moved slot")
+    gap = {}
+    for i in (0, relax):
+        rows = CX.row_pe_per_atom(chunks[i].pe, chunks[i].hist,
+                                  out["natoms"], ntemp)
+        gap[i] = rows[CX.ROW_LIQUID] - rows[CX.ROW_SOLID]
+    log(f"[coexist] {tag}: liquid - solid PE/atom by T, first chunk "
+        f"{np.round(gap[0], 4).tolist()}; first measured chunk (after "
+        f"{relax} relax) {np.round(gap[relax], 4).tolist()}")
+    check((gap[0] > 0).all(), f"[coexist] {tag}: first chunk's solid "
+          f"PE/atom not below the liquid's: gap {gap[0]}")
+    check(np.isfinite(out["liquid_fraction_series"]).all(),
+          f"[coexist] {tag}: non-finite liquid fractions")
+
+
+def phase_coexist(name):
+    """coexist_run: LJ at its defaults (16x8x8 = 4096 atoms, 13 T x 3
+    rows, prep at 8x8x8, relax 3, up to 40 chunks with the early stop),
+    then EAM Al at full width cut to --relax 1 --chunks 4."""
+    tmp = tempfile.mkdtemp(prefix="nm_cx_")
+    for tag, argv, keys in (
+            ("LJ", [], ("sweep", "total")),
+            ("AL", ["--element", "AL", "--relax", "1", "--chunks", "4"],
+             ("eam_sweep", "eam_total"))):
+        CK.reset_launches()
+        CE.reset_launches()
+        t = time.perf_counter()
+        with watch_sampling() as calls:
+            out = COEXIST_RUN.main(argv + ["--out", os.path.join(
+                tmp, f"{tag}.json")])
+        launches = launches_of(keys)
+        for k, v in launches.items():
+            KERNELS[k]["launches_coexist"] = v
+        r = out["result"]
+        log(f"[coexist] {tag}: {out['natoms']} atoms, {out['ntemp']} T x 3 "
+            f"rows, {out['relax_chunks']} relax + {out['measured_chunks']} "
+            f"measured chunks of {out['sweeps_per_chunk']} sweeps; bracket "
+            f"{out['tm_bracket']} consistent {r['consistent']}, frozen "
+            f"{r['frozen_temps']}, melted {r['melted_temps']}, unresolved "
+            f"{r['unresolved_temps']}; tail liquid fraction "
+            f"{np.round(r['liquid_fraction'], 3).tolist()}; prep "
+            f"{out['prep_seconds']} s, build {out['build_seconds']} s, "
+            f"sample {out['sample_seconds']} s, total {out['total_seconds']}"
+            f" s ({time.perf_counter() - t:.1f} s in all); launches "
+            f"{launches} on {name}")
+        coexist_gates(tag, calls, out)
+        check(all(v > 0 for v in launches.values()),
+              f"[coexist] {tag}: a kernel never launched: {launches}")
+
+
+def phase_sweep(name):
+    """bench.melting_sweep at full size (config 3: 256 Al atoms, 10 T,
+    30 records of 15 sweeps)."""
+    CE.reset_launches()
+    row = BENCH.melting_sweep(DEV)
+    launches = launches_of(("eam_sweep", "eam_total"))
+    for k, v in launches.items():
+        KERNELS[k]["launches_sweep"] = v
+    log(f"[sweep] {row['sweep_points_per_hour']:.1f} (P,T)-points/hour, "
+        f"{row['sweep_seconds']} s for {row['sweep_points']} points; T_m "
+        f"{row['sweep_tm_K']:.1f} K (the JAX gather engine's "
+        f"{row['sweep_tm_gather_engine_K']} K); diag {row['sweep_diag']}; "
+        f"P(liquid) {row['sweep_probs']}; launches {launches} on {name}")
+    check(row["sweep_diag"] == 0, f"[sweep] diag {row['sweep_diag']}")
+    check(math.isfinite(row["sweep_tm_K"]), "[sweep] non-finite T_m")
+    check(all(v > 0 for v in launches.values()),
+          f"[sweep] a kernel never launched: {launches}")
 
 
 def config3(seed):
@@ -1758,6 +2085,9 @@ def main():
               ("eam-main", lambda: phase_eam_main(name, table)),
               ("cli", lambda: phase_cli(name)),
               ("bench", lambda: phase_bench(name)),
+              ("northstar", lambda: phase_northstar(name)),
+              ("coexist", lambda: phase_coexist(name)),
+              ("sweep", lambda: phase_sweep(name)),
               ("eam-physics", lambda: phase_eam_physics(name, table)),
               ("serial-small", phase_serial_small),
               ("serial-full", lambda: phase_serial_full(name)),

@@ -1,6 +1,6 @@
 """Benchmark of the port: attempted MC moves/s on the card, three rows.
 
-    python -m neuralmelting_tpu_torch.bench [--device cuda]
+    python -m neuralmelting_tpu_torch.bench [--device cuda] [--sweep]
 
 - **LJ kernel row**: the north-star configuration (fcc 16x8x8 = 4096
   atoms, a 32x32 (P, T) grid over P* in [1, 8] and T* in [0.7, 1.3],
@@ -19,6 +19,11 @@
   [600, 1400] K, seed 11, dpos0 0.15, dvol0 0.002) with the rc = 3.8
   synthetic table (``models/eam_gen.py``, written to a temporary
   directory), the kernel row's protocol.
+- **EAM melting sweep** (``--sweep``; ``scripts/eambench.py``'s
+  points/hour half): docs/VALIDATION.md config 3 (256 Al atoms, 1 bar,
+  10 temperatures 400-2200 K, 30 records of 15 sweeps, 6 cut, seed 5)
+  through ``pipeline.melting_pipeline`` with the same table, timed:
+  (P, T) points/hour and T_m.
 
 Prints one JSON line of scalars: each row's rate, diag (0 when clean),
 seconds, slot capacity, atoms and replicas, the device, and the card's
@@ -37,10 +42,13 @@ import os
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
 from neuralmelting_tpu_torch import runner
+from neuralmelting_tpu_torch.config import RunConfig
 from neuralmelting_tpu_torch.models import eam_gen
+from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.profile_chunk import configs as full_configs
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 
@@ -115,6 +123,36 @@ def e2e_row(setup):
     return setup, sweeps * setup.natoms / (t2 - t1), t2 - t1, diag
 
 
+def melting_sweep(device, fast: bool = False) -> dict:
+    """Config 3's melting sweep through ``melting_pipeline`` on the cellmc
+    EAM engine, timed from set-up to T_m (``fast``: 4 temperatures, 4
+    records, 1 cut). Returns the ``sweep_*`` keys of the bench's row."""
+    dev = runner.resolve_device(device)
+    nt = 4 if fast else 10
+    cfg = RunConfig(
+        name="eamsweep", element="AL", ncells=(4, 4, 4),   # 256 atoms
+        npress=1, ntemp=nt, press=(1.0,),
+        temp=tuple(float(t) for t in np.linspace(400.0, 2200.0, nt)),
+        nsmpl=4 if fast else 30, mod=15, ncut=1 if fast else 6,
+        seed=5, dpos0=0.15, dvol0=0.01)
+    with tempfile.TemporaryDirectory(prefix="nm_sweep_") as tmp:
+        table = os.path.join(tmp, "al38.eam.alloy")
+        eam_gen.write_setfl(table, rc=3.8)
+        t0 = runner.timed(dev)
+        res = melting_pipeline(cfg, setfl=table, engine="cellmc", nbins=48,
+                               device=dev)
+        dt = runner.timed(dev) - t0
+    return {
+        "sweep_tm_K": float(res.tm[0]),
+        "sweep_tm_gather_engine_K": 1778.2,   # eam_tm_ab.json glong leg
+        "sweep_points": nt,
+        "sweep_seconds": round(dt, 1),
+        "sweep_points_per_hour": nt / (dt / 3600.0),
+        "sweep_diag": res.diag,
+        "sweep_probs": [round(float(p), 3) for p in res.probs[0]],
+    }
+
+
 def card_info():
     """(name, power limit in W) from nvidia-smi, or (None, None)."""
     try:
@@ -160,9 +198,12 @@ def measure(cfgs, device) -> dict:
     return row
 
 
-def report(cfgs, device) -> dict:
-    """``measure``, printed as one compact JSON line; returns the row."""
+def report(cfgs, device, sweep: bool = False) -> dict:
+    """``measure`` (and with ``sweep`` the melting sweep's keys), printed
+    as one compact JSON line; returns the row."""
     row = measure(cfgs, device)
+    if sweep:
+        row.update(melting_sweep(device))
     print(json.dumps(row, separators=(",", ":")), flush=True)
     return row
 
@@ -171,7 +212,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
-    return report(configs(), ap.parse_args(argv).device)
+    ap.add_argument("--sweep", action="store_true",
+                    help="add the EAM melting sweep's points/hour")
+    args = ap.parse_args(argv)
+    return report(configs(), args.device, args.sweep)
 
 
 if __name__ == "__main__":

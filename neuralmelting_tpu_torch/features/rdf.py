@@ -3,10 +3,19 @@
 kernel).
 
 The histogram bins each minimum-image pair distance with
-``torch.bucketize`` and counts with an integer ``bincount``: the same
-per-bin integer counts as the JAX cumulative-edge form, because r^2 and
-the f32 bin edges are computed in the same order and the minimum image
-rounds half to even as ``jnp.round`` does.
+``torch.bucketize`` and counts with an integer ``bincount``, and gives
+the JAX package's per-bin integer counts as XLA computes them on the CPU.
+XLA contracts the JAX minimum image ``d - L * round(d / L)`` into
+fma(-L, round(d / L), d) and r^2 into fma(dz, dz, fma(dx, dx, dy * dy))
+(found by comparing counts on frames with pairs within an f32 ulp of the
+bin edges). ``_r2_fma`` emulates both in f64: a product of two f32 values
+is exact there, and one rounding to f32 follows the add (a double
+rounding differs from the fused result with probability about 2^-29).
+The plain f32 r^2 differs from it by a few ulps at most, so only the
+elements that lie within ``EDGE_TOL`` of a bin edge are recomputed,
+unless a frame holds coordinates beyond [-L, L], where round(d / L) can
+exceed 2 and L * round(d / L) is no longer exact in f32: such a batch
+takes the emulation for every element.
 """
 
 from __future__ import annotations
@@ -40,25 +49,65 @@ def _shell_norm(counts, n, box, nbins, rmax):
     return counts / torch.clamp(ideal, min=1e-30)
 
 
-def _pair_counts(pos, box, nbins: int, rmax: float, max_elems: int):
+def _r2_fma(raw, lengths):
+    """r^2 as XLA on the CPU computes the JAX package's, from the raw
+    coordinate differences ``raw`` (3 tensors) and the box lengths
+    ``lengths`` (3 tensors broadcasting against them): each fused
+    multiply-add as an f64 product and add, rounded once to f32."""
+    d = []
+    for c, length in zip(raw, lengths):
+        q = torch.round(c / length)
+        d.append((c.double() - length.double() * q.double()).float())
+    x, z = d[0].double(), d[2].double()
+    inner = (x * x + (d[1] * d[1]).double()).float()
+    return (z * z + inner.double()).float()
+
+
+# relative window around a bin edge inside which the plain f32 r^2 may
+# fall into another bin than the contracted one: both lie within 3 f32
+# roundings (3 * 2^-24 relative) of the exact r^2, so they differ by at
+# most 6 * 2^-24 < 2^-21; 2^-19 leaves a margin of 4
+EDGE_TOL = 2.0 ** -19
+
+
+def _pair_counts(pos, box, nbins: int, rmax: float, max_elems: int,
+                 whole_block: bool = False):
     """Unordered pair counts per bin, pos (F, N, 3), box (F, 3) ->
-    (F, nbins) float (exact integers)."""
+    (F, nbins) float (exact integers). ``whole_block`` computes every
+    element's r^2 through ``_r2_fma`` (the reference of the near-edge
+    recomputation; the same counts)."""
     f, n, _ = pos.shape
     dev = pos.device
     edges2 = _edges2(nbins, rmax, dev)
+    # the edge below and above each bucket, open at both ends
+    lo = torch.cat([torch.zeros(1, device=dev), edges2])
+    hi = torch.cat([edges2, torch.full((1,), math.inf, device=dev)])
+    whole_block = whole_block or not bool((pos.abs() <= box[:, None]).all())
     counts = torch.zeros((f, nbins + 1), dtype=torch.int64, device=dev)
     rb = max(1, min(n, max_elems // max(f * n, 1)))
     fidx = torch.arange(f, device=dev)[:, None, None] * (nbins + 1)
     for start in range(0, n, rb):
         stop = min(n, start + rb)
-        d = [_mi(pos[:, start:stop, None, a] - pos[:, None, :, a],
-                 box[:, a, None, None]) for a in range(3)]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]      # (F, rb, N)
+        raw = [pos[:, start:stop, None, a] - pos[:, None, :, a]
+               for a in range(3)]
+        if whole_block:
+            r2 = _r2_fma(raw, [box[:, a, None, None] for a in range(3)])
+        else:
+            d = [_mi(raw[a], box[:, a, None, None]) for a in range(3)]
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]  # (F, rb, N)
         rows = torch.arange(start, stop, device=dev)[:, None]
         r2 = torch.where(rows == torch.arange(n, device=dev)[None, :],
                          1e30, r2)
         # bin b holds edges2[b-1] <= r2 < edges2[b]; index nbins: beyond
         idx = torch.bucketize(r2, edges2, right=True)
+        if not whole_block:
+            near = ((r2 * (1.0 - EDGE_TOL) < lo[idx])
+                    | (r2 * (1.0 + EDGE_TOL) >= hi[idx]))
+            at = near.nonzero(as_tuple=True)
+            if len(at[0]):
+                exact = _r2_fma([c[at] for c in raw],
+                                [box[at[0], a] for a in range(3)])
+                idx[at] = torch.bucketize(exact, edges2, right=True)
         counts += torch.bincount((idx + fidx).reshape(-1),
                                  minlength=f * (nbins + 1)).view(f, -1)
     return counts[:, :nbins].to(torch.float32) * 0.5

@@ -1,8 +1,11 @@
 """Port parity: g(r), S(q), scalers, classifiers, training and the T_m
 fit, against the JAX package on the same inputs (numpy, seeded).
 
-g(r) pair counts must be EQUAL integers (same f32 r^2, same f32 edges,
-round-half-even minimum image); everything else agrees to f32 rounding.
+g(r) pair counts must be EQUAL integers: the port computes the minimum
+image and r^2 as XLA contracts the JAX package's into multiply-adds on
+the CPU, with the same f32 edges and round-half-even minimum image, also
+for pairs placed within f32 ulps of a bin edge; everything else agrees
+to f32 rounding.
 Classifier weights are carried over from flax (classifier_params_from_flax)
 so both frameworks compute from the same parameters.
 """
@@ -59,6 +62,60 @@ def test_rdf_of_uniform_points_counts_equal_jax():
                          4.4, max_elems=3000)           # several row blocks
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-6)
+
+
+def _edge_frames(seed, nf, n, nbins, npairs, unwrap):
+    """Uniform frames in which atom 2k+1 sits at a bin edge's distance
+    from atom 2k, within +-3e-7 relative (a few f32 ulps of r^2), in a
+    random direction; ``unwrap`` shifts every atom by whole boxes (up to
+    +-4), so round(d / L) reaches beyond 2."""
+    g = np.random.default_rng(seed)
+    pos, boxes, rmaxes = [], [], []
+    for _ in range(nf):
+        box = g.uniform(6.0, 9.0, 3).astype(np.float32)
+        rmax = 0.48 * float(box.min())
+        dr = np.float32(rmax / nbins)
+        p = (g.uniform(size=(n, 3)) * box).astype(np.float32)
+        for k in range(npairs):
+            e = np.float64(np.float32(np.float32(g.integers(1, nbins + 1))
+                                      * dr))
+            u = g.standard_normal(3)
+            u /= np.linalg.norm(u)
+            r = np.sqrt(np.float32(e * e)) * (1 + g.uniform(-3e-7, 3e-7))
+            p[2 * k + 1] = np.mod(p[2 * k] + r * u, box)
+        if unwrap:
+            p = p + box * g.integers(-4, 5, (n, 3)).astype(np.float32)
+        pos.append(p.astype(np.float32))
+        boxes.append(box)
+        rmaxes.append(rmax)
+    return pos, boxes, rmaxes
+
+
+@pytest.mark.parametrize("seed,unwrap", [(0, False), (1, False), (2, True)])
+def test_rdf_counts_equal_jax_at_bin_edges(seed, unwrap, monkeypatch):
+    """Pairs within ulps of the bin edges: the port's counts (near-edge
+    recomputation, and the whole-block emulation) equal the JAX
+    package's on every frame; the plain f32 r^2 alone (no recomputation)
+    does not, so these frames reach the contraction."""
+    nbins = 32
+    pos, boxes, rmaxes = _edge_frames(seed, 6, 200, nbins, 90, unwrap)
+    plain_differs = False
+    for p, b, rmax in zip(pos, boxes, rmaxes):
+        _, jc = JR.rdf_hist(jnp.asarray(p), jnp.asarray(b), nbins, rmax)
+        jc = np.asarray(jc)
+        tp, tb = torch.as_tensor(p), torch.as_tensor(b)
+        _, tc = TR.rdf_hist(tp, tb, nbins, rmax, max_elems=4000)
+        np.testing.assert_array_equal(tc.numpy(), jc)
+        tw = TR._pair_counts(tp[None], tb[None], nbins, rmax, 1 << 20,
+                             whole_block=True)[0]
+        np.testing.assert_array_equal(tw.numpy(), jc)
+        if not unwrap:
+            with monkeypatch.context() as m:
+                m.setattr(TR, "EDGE_TOL", 0.0)
+                plain = TR._pair_counts(tp[None], tb[None], nbins, rmax,
+                                        1 << 20)[0].numpy()
+            plain_differs |= bool((plain != jc).any())
+    assert plain_differs or unwrap
 
 
 def test_rdf_frames_and_structure_factor_match_jax():
