@@ -8,14 +8,12 @@ the JAX package's per-bin integer counts as XLA computes them on the CPU.
 XLA contracts the JAX minimum image ``d - L * round(d / L)`` into
 fma(-L, round(d / L), d) and r^2 into fma(dz, dz, fma(dx, dx, dy * dy))
 (found by comparing counts on frames with pairs within an f32 ulp of the
-bin edges). ``_r2_fma`` emulates both in f64: a product of two f32 values
-is exact there, and one rounding to f32 follows the add (a double
-rounding differs from the fused result with probability about 2^-29).
-The plain f32 r^2 differs from it by a few ulps at most, so only the
-elements that lie within ``EDGE_TOL`` of a bin edge are recomputed,
-unless a frame holds coordinates beyond [-L, L], where round(d / L) can
-exceed 2 and L * round(d / L) is no longer exact in f32: such a batch
-takes the emulation for every element.
+bin edges). ``_r2_fma`` emulates both in f64 for every pair: a product
+of two f32 values is exact there, and one rounding to f32 follows the
+add (a double rounding differs from the fused result with probability
+about 2^-29). On a CUDA tensor the pass from coordinates to bin indices
+(``_bin_block``) runs as one fused kernel through ``torch.compile``, so
+the f64 steps cost no memory traffic; on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -23,11 +21,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-
-def _mi(d, length):
-    """Minimum image, one component (round half to even)."""
-    return d - length * torch.round(d / length)
 
 
 def _edges2(nbins: int, rmax: float, device):
@@ -53,64 +46,74 @@ def _r2_fma(raw, lengths):
     """r^2 as XLA on the CPU computes the JAX package's, from the raw
     coordinate differences ``raw`` (3 tensors) and the box lengths
     ``lengths`` (3 tensors broadcasting against them): each fused
-    multiply-add as an f64 product and add, rounded once to f32."""
+    multiply-add as an f64 product and add, rounded once to f32. Every
+    product is one of f32 values taken in f64, so exact, and every f32
+    rounding is an explicit cast: a compiler that contracts a multiply
+    and an add into one fma gives the same bits. The f32 quotient d / L
+    is taken as the f64 one rounded to f32, which is the correctly
+    rounded f32 quotient (53 >= 2 * 24 + 2 bits), whatever division a
+    compiler would pick for f32."""
     d = []
     for c, length in zip(raw, lengths):
-        q = torch.round(c / length)
-        d.append((c.double() - length.double() * q.double()).float())
-    x, z = d[0].double(), d[2].double()
-    inner = (x * x + (d[1] * d[1]).double()).float()
-    return (z * z + inner.double()).float()
+        c64, l64 = c.double(), length.double()
+        q = torch.round((c64 / l64).float()).double()
+        d.append((c64 - l64 * q).float().double())
+    x, y, z = d
+    inner = (x * x + (y * y).float().double()).float().double()
+    return (z * z + inner).float()
 
 
-# relative window around a bin edge inside which the plain f32 r^2 may
-# fall into another bin than the contracted one: both lie within 3 f32
-# roundings (3 * 2^-24 relative) of the exact r^2, so they differ by at
-# most 6 * 2^-24 < 2^-21; 2^-19 leaves a margin of 4
-EDGE_TOL = 2.0 ** -19
+def _bin_block(rows, pos, box, edges2):
+    """Bucket of every pair of rows (F, rb, 3) against pos (F, N, 3) in
+    boxes (F, 3), offset by the frame: (F, rb, N) int32 holding
+    b + f * (nbins + 1), where bin b holds edges2[b-1] <= r2 < edges2[b]
+    and b = nbins lies beyond. A pair of an atom with itself has r2 = 0:
+    bin 0."""
+    raw = [rows[:, :, None, a] - pos[:, None, :, a] for a in range(3)]
+    r2 = _r2_fma(raw, [box[:, a, None, None] for a in range(3)])
+    idx = torch.bucketize(r2, edges2, out_int32=True, right=True)
+    frame = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+    return idx + frame[:, None, None] * (edges2.shape[0] + 1)
+
+
+_COMPILED = []
+
+
+def _bin_block_compiled():
+    # without the pattern matcher: one of its graph passes folds an
+    # f64 -> f32 -> f64 cast chain into one cast, which drops the f32
+    # roundings that _r2_fma spells as casts; one kernel compiles in this
+    # process, with no pool of compile workers
+    if not _COMPILED:
+        _COMPILED.append(torch.compile(
+            _bin_block, dynamic=True, fullgraph=True,
+            options={"pattern_matcher": False, "compile_threads": 1}))
+    return _COMPILED[0]
 
 
 def _pair_counts(pos, box, nbins: int, rmax: float, max_elems: int,
-                 whole_block: bool = False):
+                 compiled: bool = True):
     """Unordered pair counts per bin, pos (F, N, 3), box (F, 3) ->
-    (F, nbins) float (exact integers). ``whole_block`` computes every
-    element's r^2 through ``_r2_fma`` (the reference of the near-edge
-    recomputation; the same counts)."""
+    (F, nbins) float (exact integers). A CUDA tensor takes ``_bin_block``
+    through ``torch.compile`` unless ``compiled`` is false (its eager
+    reference; the same counts)."""
     f, n, _ = pos.shape
     dev = pos.device
     edges2 = _edges2(nbins, rmax, dev)
-    # the edge below and above each bucket, open at both ends
-    lo = torch.cat([torch.zeros(1, device=dev), edges2])
-    hi = torch.cat([edges2, torch.full((1,), math.inf, device=dev)])
-    whole_block = whole_block or not bool((pos.abs() <= box[:, None]).all())
-    counts = torch.zeros((f, nbins + 1), dtype=torch.int64, device=dev)
+    bins = _bin_block
+    if compiled and pos.is_cuda:
+        # the compiled pass is specialised to inputs that start their
+        # own storage: a view into a larger batch would compile it again
+        bins = _bin_block_compiled()
+        pos, box = pos.clone(), box.clone()
+    counts = torch.zeros(f * (nbins + 1), dtype=torch.int64, device=dev)
     rb = max(1, min(n, max_elems // max(f * n, 1)))
-    fidx = torch.arange(f, device=dev)[:, None, None] * (nbins + 1)
     for start in range(0, n, rb):
-        stop = min(n, start + rb)
-        raw = [pos[:, start:stop, None, a] - pos[:, None, :, a]
-               for a in range(3)]
-        if whole_block:
-            r2 = _r2_fma(raw, [box[:, a, None, None] for a in range(3)])
-        else:
-            d = [_mi(raw[a], box[:, a, None, None]) for a in range(3)]
-            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]  # (F, rb, N)
-        rows = torch.arange(start, stop, device=dev)[:, None]
-        r2 = torch.where(rows == torch.arange(n, device=dev)[None, :],
-                         1e30, r2)
-        # bin b holds edges2[b-1] <= r2 < edges2[b]; index nbins: beyond
-        idx = torch.bucketize(r2, edges2, right=True)
-        if not whole_block:
-            near = ((r2 * (1.0 - EDGE_TOL) < lo[idx])
-                    | (r2 * (1.0 + EDGE_TOL) >= hi[idx]))
-            at = near.nonzero(as_tuple=True)
-            if len(at[0]):
-                exact = _r2_fma([c[at] for c in raw],
-                                [box[at[0], a] for a in range(3)])
-                idx[at] = torch.bucketize(exact, edges2, right=True)
-        counts += torch.bincount((idx + fidx).reshape(-1),
-                                 minlength=f * (nbins + 1)).view(f, -1)
-    return counts[:, :nbins].to(torch.float32) * 0.5
+        idx = bins(pos[:, start:start + rb].clone(), pos, box, edges2)
+        counts += torch.bincount(idx.reshape(-1), minlength=f * (nbins + 1))
+    counts = counts.view(f, nbins + 1)[:, :nbins]
+    counts[:, 0] -= n                      # each atom paired with itself
+    return counts.to(torch.float32) * 0.5
 
 
 def rdf_hist(pos, box, nbins: int, rmax: float, max_elems: int = 1 << 24):

@@ -143,15 +143,14 @@ class Checkpointer:
         return dt
 
 
-def preflight(r: int, natoms: int, rmax: float, device,
-              nbins: int = NBINS) -> float:
+def preflight(r: int, natoms: int, rmax: float, device) -> float:
     """g(r) of one synthetic frame a replica at the run's sizes, so that
     a featurization that cannot run fails before the sampling."""
     gen = torch.Generator(device=device).manual_seed(0)
     pos = torch.rand((r, natoms, 3), generator=gen, device=device) * 10.0
     boxes = torch.full((r, 3), 10.0, device=device)
     t0 = runner.timed(device)
-    g = rdf_frames(pos, boxes, nbins, rmax)
+    g = rdf_frames(pos, boxes, NBINS, rmax)
     finite = bool(torch.isfinite(g).all())
     dt = runner.timed(device) - t0
     print(f"preflight: rdf_frames({r}x{natoms}) ok in {dt:.1f}s "
@@ -159,15 +158,15 @@ def preflight(r: int, natoms: int, rmax: float, device,
     return dt
 
 
-def featurize_chunk(frames, hist, rmax: float, nbins: int = NBINS):
+def featurize_chunk(frames, hist, rmax: float):
     """(nrec, R, N, 3) and (nrec, R, 3) frames on the device, hist (nrec,
-    R) -> the slot-ordered chunk means of g (R, nbins) and box (R, 3) on
+    R) -> the slot-ordered chunk means of g (R, NBINS) and box (R, 3) on
     the host."""
     pos, boxes = frames
     nrec, r = hist.shape
     g = rdf_frames(pos.reshape(nrec * r, -1, 3), boxes.reshape(nrec * r, 3),
-                   nbins, rmax)
-    g_slot = slot_order_features(g.cpu().numpy().reshape(nrec, r, nbins),
+                   NBINS, rmax)
+    g_slot = slot_order_features(g.cpu().numpy().reshape(nrec, r, NBINS),
                                  hist)
     b_slot = slot_order_features(boxes.cpu().numpy(), hist)
     return g_slot.mean(axis=0), b_slot.mean(axis=0)
@@ -238,8 +237,8 @@ def first_chunk_excess(chunk_log) -> float:
                      for f in firsts.values()))
 
 
-def cool_leg(setup, clf, eq_chunks, samp_chunks, records, rmax, nbins,
-             state, diag_any):
+def cool_leg(setup, clf, eq_chunks, samp_chunks, records, rmax, state,
+             diag_any):
     """Re-start every replica from the molten configuration of the
     hottest slot at its pressure, re-equilibrate and sample as the heating
     leg, and apply its classifier. Returns (setup, tms, resolved,
@@ -269,8 +268,7 @@ def cool_leg(setup, clf, eq_chunks, samp_chunks, records, rmax, nbins,
                 nrecords=records)
             diag_any |= int(diag)
             if phase == "cool_samp":
-                g, b = featurize_chunk(frames, hist.cpu().numpy(), rmax,
-                                       nbins)
+                g, b = featurize_chunk(frames, hist.cpu().numpy(), rmax)
                 gs.append(g)
                 bs.append(b)
             runner.timed(dev)
@@ -290,8 +288,7 @@ def cool_leg(setup, clf, eq_chunks, samp_chunks, records, rmax, nbins,
 
 def run(cfg: RunConfig, state: str, out: str, eq_chunks: int,
         samp_chunks: int, records: int, ck_secs: float = 240.0,
-        cool: bool = False, preflight_only: bool = False, device="cuda",
-        nbins: int = NBINS):
+        cool: bool = False, preflight_only: bool = False, device="cuda"):
     """One attempt of the north-star run of ``cfg``, resuming from
     ``state``; writes the result to ``out`` and returns it (None after
     ``preflight_only``)."""
@@ -320,7 +317,7 @@ def run(cfg: RunConfig, state: str, out: str, eq_chunks: int,
     natoms = setup.natoms
     rmax = 0.48 * float(torch.min(setup.states.box[0]))
 
-    pf_secs = preflight(r, natoms, rmax, dev, nbins)
+    pf_secs = preflight(r, natoms, rmax, dev)
     if preflight_only:
         return None
 
@@ -365,8 +362,7 @@ def run(cfg: RunConfig, state: str, out: str, eq_chunks: int,
         diag_any |= int(diag)
         kdt = time.perf_counter() - t0
         t1 = time.perf_counter()
-        g_slot, b_slot = featurize_chunk(frames, hist.cpu().numpy(), rmax,
-                                         nbins)
+        g_slot, b_slot = featurize_chunk(frames, hist.cpu().numpy(), rmax)
         del frames
         fdt = time.perf_counter() - t1
         fp = os.path.join(state, f"feat_{i:03d}.npz")
@@ -395,7 +391,7 @@ def run(cfg: RunConfig, state: str, out: str, eq_chunks: int,
             gs.append(z["g"])
             bs.append(z["box"])
     feats = torch.as_tensor(np.mean(gs, axis=0), dtype=torch.float32,
-                            device=dev)                      # (R, nbins)
+                            device=dev)                      # (R, NBINS)
     box_mean = torch.as_tensor(np.mean(bs, axis=0), device=dev)
     tms, _widths, resolved_h, (q, sq), clf = train_and_fit(
         setup, feats, box_mean, npress, ntemp, natoms, rmax)
@@ -450,8 +446,8 @@ def run(cfg: RunConfig, state: str, out: str, eq_chunks: int,
 
     if cool:
         setup, tms2, resolved2, cool_secs, cool_log, diag_any = cool_leg(
-            setup, clf, eq_chunks, samp_chunks, records, rmax, nbins,
-            state, diag_any)
+            setup, clf, eq_chunks, samp_chunks, records, rmax, state,
+            diag_any)
         t_min = float(np.asarray(setup.temp)[0])
         # a cooling row that never refroze on the grid says only T_cool <
         # the lowest T scanned: null, not the extrapolated fit

@@ -12,8 +12,10 @@ each (four at a time), on the CPU. Writes each chain's T_m(P*) and
 P(liquid), and the chains' mean and standard deviation of T_m(P*=1), to
 tests/golden/lj_validation_gather.json (or OUT.json).
 
-chip_smoke.py's physics phase holds the mean T_m(P*=1) of the port's
-chains of the same seeds to this mean, and both to the 0.78 anchor.
+chip_smoke.py's physics phase gates the mean T_m(P*=1) of the port's
+chains of the same seeds to within 2% of 0.78, prints these chains
+beside them, and from their mean and spread the smallest steady bias of
+the port's mean that the gate catches.
 """
 
 import json

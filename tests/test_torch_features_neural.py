@@ -91,12 +91,18 @@ def _edge_frames(seed, nf, n, nbins, npairs, unwrap):
     return pos, boxes, rmaxes
 
 
+def _r2_plain(raw, lengths):
+    d = [c - length * torch.round(c / length)
+         for c, length in zip(raw, lengths)]
+    return d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+
+
 @pytest.mark.parametrize("seed,unwrap", [(0, False), (1, False), (2, True)])
 def test_rdf_counts_equal_jax_at_bin_edges(seed, unwrap, monkeypatch):
-    """Pairs within ulps of the bin edges: the port's counts (near-edge
-    recomputation, and the whole-block emulation) equal the JAX
-    package's on every frame; the plain f32 r^2 alone (no recomputation)
-    does not, so these frames reach the contraction."""
+    """Pairs within ulps of the bin edges: the port's counts equal the
+    JAX package's on every frame; the plain f32 minimum image and r^2
+    (no emulated multiply-add) do not, so these frames reach the
+    contraction."""
     nbins = 32
     pos, boxes, rmaxes = _edge_frames(seed, 6, 200, nbins, 90, unwrap)
     plain_differs = False
@@ -106,12 +112,9 @@ def test_rdf_counts_equal_jax_at_bin_edges(seed, unwrap, monkeypatch):
         tp, tb = torch.as_tensor(p), torch.as_tensor(b)
         _, tc = TR.rdf_hist(tp, tb, nbins, rmax, max_elems=4000)
         np.testing.assert_array_equal(tc.numpy(), jc)
-        tw = TR._pair_counts(tp[None], tb[None], nbins, rmax, 1 << 20,
-                             whole_block=True)[0]
-        np.testing.assert_array_equal(tw.numpy(), jc)
         if not unwrap:
             with monkeypatch.context() as m:
-                m.setattr(TR, "EDGE_TOL", 0.0)
+                m.setattr(TR, "_r2_fma", _r2_plain)
                 plain = TR._pair_counts(tp[None], tb[None], nbins, rmax,
                                         1 << 20)[0].numpy()
             plain_differs |= bool((plain != jc).any())

@@ -57,7 +57,7 @@ def tiny_cfg():
 
 
 def test_featurize_chunk_matches_jax():
-    nrec, r, nbins, rmax = 2, 6, 32, 2.3
+    nrec, r, nbins, rmax = 2, 6, NS.NBINS, 2.3
     lat, box = make_supercell("fcc", 1.6, 3)                  # 108 atoms
     rng = np.random.default_rng(3)
     pos = (lat + 0.1 * rng.standard_normal((nrec, r) + lat.shape)).astype(
@@ -65,7 +65,7 @@ def test_featurize_chunk_matches_jax():
     boxes = (box * rng.uniform(0.99, 1.02, (nrec, r, 1))).astype(np.float32)
     hist = np.stack([rng.permutation(r) for _ in range(nrec)])
     g, b = NS.featurize_chunk((torch.as_tensor(pos), torch.as_tensor(boxes)),
-                              hist, rmax, nbins)
+                              hist, rmax)
     jg = np.asarray(JR.rdf_frames(jnp.asarray(pos.reshape(-1, 108, 3)),
                                   jnp.asarray(boxes.reshape(-1, 3)), nbins,
                                   rmax)).reshape(nrec, r, nbins)
