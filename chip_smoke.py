@@ -30,6 +30,33 @@ Phases, in order (any failed check exits non-zero):
                    (tests/golden/lj_validation_gather.json, made by
                    tests/make_lj_validation.py), with the smallest steady
                    bias the gate catches; seed 7's T_m printed;
+  The gather engine (the JAX package's default; no TPU kernel: its stages
+  run as torch operations replayed from CUDA graphs):
+  5a. gather-small — the 108-atom, 2x2-grid chunk of
+                   tests/test_torch_gather_engine.py on the card against
+                   the port on the CPU from the same inputs: a pass's
+                   shift, colour order, picks and displacements equal bit
+                   for bit (ln u and HMC normals: ulps printed); one pass's
+                   decisions equal but where a margin is below G_MARGIN
+                   (any printed with its margin); the chunk's hist, xacc
+                   and decisions equal, pe, virial, vol and frames within
+                   the tests' limits; the chunk through CUDA graphs equal
+                   to it run eagerly on the card, bit for bit;
+  5b. gather-physics — the physics phase's configuration, gate and JAX
+                   chains through melting_pipeline's default engine:
+                   every chain diag 0 with a finite T_m, the mean
+                   T_m(P*=1) within 2% of 0.78, port - JAX printed;
+                   seconds a chain and ms a sweep;
+  5c. gather-hmc — one chunk at 256 atoms with an HMC move a sweep (8
+                   leapfrog steps): HMC moves accepted, diag 0 (no
+                   NL_STALE), pe against a fresh list total and that total
+                   against brute force within rtol 1e-5;
+  5d. gather-full — 4096 atoms on the JAX CLI's default 4x16 grid (R=64),
+                   two chunks of 2 records x 4 sweeps through
+                   setup_run(engine="gather"): ms a sweep, attempted
+                   moves/s, rebuilds, host syncs and graph replays a sweep,
+                   K, peak memory; one sweep and its record under
+                   torch.profiler: the device-busy share;
   EAM path (kernels B3 sweep, B4 total; the rc=3.8 synthetic Al table,
   written to a temp directory at run time):
   6. eam-small   — B4 and B3 against their plain versions at 4x4x4 fcc Al
@@ -64,7 +91,11 @@ Phases, in order (any failed check exits non-zero):
                    per slot, the first record's pe/N within RESTART_TOL of
                    the checkpointed run's last (a restart that sampled from
                    the lattice would lie beyond it); seconds per stage and
-                   which text writer ran;
+                   which text writer ran; then remcmc with no --engine
+                   (gather) at 256 atoms on a 2x4 grid, 4 records of 4
+                   sweeps, and its --restart for 2 records (diag 0, the
+                   restart's first pe/N within RESTART_TOL of the
+                   checkpointed last);
   8b. bench      — python -m neuralmelting_tpu_torch.bench's main in-process
                    at its full configuration (its JSON line printed as it
                    is): every row's diag 0 and rate > 0; B1-B4 counters
@@ -175,6 +206,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import io
 import json
@@ -218,12 +250,18 @@ from neuralmelting_tpu_torch.ops import _build
 from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
+from neuralmelting_tpu_torch.ops import jrandom as J
 from neuralmelting_tpu_torch.ops import lj_delta as LD
+from neuralmelting_tpu_torch.ops import neighbors as NB
+from neuralmelting_tpu_torch.parallel import ensemble as ENS
 from neuralmelting_tpu_torch.ops.energy import min_image, pair_energy_virial
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
-from neuralmelting_tpu_torch.profile_chunk import configs
+from neuralmelting_tpu_torch.profile_chunk import (_device_ms, configs,
+                                                   kernel_label)
 from neuralmelting_tpu_torch.sampler import cellmc as SC
+from neuralmelting_tpu_torch.sampler import checkerboard as CB
 from neuralmelting_tpu_torch.sampler import moves, serial
+from neuralmelting_tpu_torch.sampler.state import FIELDS
 from neuralmelting_tpu_torch.utils import MetricsLogger
 
 DEV = torch.device("cuda")
@@ -782,6 +820,267 @@ def phase_physics(name):
 
 
 # ---------------------------------------------------------------------------
+# the gather engine (no TPU kernel: torch stages replayed from CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_gather_engine.py's chunk: 108 atoms, a 2x2 grid close
+# enough for swaps, 2 records of 2 sweeps
+GATHER_SMALL = dict(name="gsmall", element="LJ", ncells=(3, 3, 3), npress=2,
+                    ntemp=2, press=(1.0, 1.3), temp=(0.8, 0.84), nsmpl=2,
+                    mod=2, ncut=0, seed=3)
+# the stated f32 tolerances of the gather tests: pe and virial rtol, vol
+# rtol, positions relative to the box edge; a decision that differs must
+# have its margin |ln u - weight| below G_MARGIN
+G_RTOL, G_VOL, G_POS, G_MARGIN = 1e-5, 1e-6, 1e-5, 1e-4
+
+
+def f32_ulps(a, b):
+    """Largest distance in f32 ulps between two f32 tensors (host)."""
+    ia = a.detach().cpu().contiguous().view(torch.int32).long()
+    ib = b.detach().cpu().contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def gather_chunk(cfg, device, graphs=True):
+    """setup_run + one run_sampling chunk of the gather engine; ``graphs``
+    False runs its stages eagerly on the card."""
+    make = ENS.make_ensemble_run_fn
+    runner._GATHER_RUNS.clear()
+    if not graphs:
+        ENS.make_ensemble_run_fn = functools.partial(make, graphs=False)
+    try:
+        setup = runner.setup_run(cfg, device=device)
+        out = runner.run_sampling(setup, write_files=False)
+    finally:
+        ENS.make_ensemble_run_fn = make
+        runner._GATHER_RUNS.clear()
+    return out
+
+
+def hold_chunk(a, b, tag):
+    """Two chunks of one configuration: hist, xacc and every decision
+    (acc_* records) equal, energies and frames within the stated limits.
+    Returns the largest differences."""
+    check(torch.equal(a[3].cpu(), b[3].cpu()) and torch.equal(
+        a[4].cpu(), b[4].cpu()), f"[{tag}] hist or xacc differ: "
+          f"{a[4].tolist()} vs {b[4].tolist()}")
+    for f in ("sweep", "acc_pos", "acc_vol", "acc_hmc", "dpos", "dvol"):
+        check(torch.equal(getattr(a[1], f).cpu(), getattr(b[1], f).cpu()),
+              f"[{tag}] records differ in {f}")
+    err = {}
+    for f, tol in (("pe", G_RTOL), ("virial", G_RTOL), ("vol", G_VOL)):
+        x, y = getattr(a[1], f).cpu(), getattr(b[1], f).cpu()
+        err[f] = float(((x - y).abs() / y.abs()).max())
+        check(err[f] <= tol, f"[{tag}] {f} rel {err[f]:.2e} > {tol}")
+    lmax = float(b[2][1].max())
+    err["pos"] = float((a[2][0].cpu() - b[2][0].cpu()).abs().max()) / lmax
+    check(err["pos"] <= G_POS, f"[{tag}] frames differ by {err['pos']:.2e}"
+          f" of the box edge")
+    return err
+
+
+def phase_gather_small(name):
+    """Draws, one pass's decisions and one chunk: the card (CUDA graphs,
+    and eager) against the port on the CPU from the same inputs."""
+    cfg = RunConfig(**GATHER_SMALL)
+    g = runner.setup_run(cfg, device=DEV)
+    c = runner.setup_run(cfg, device="cpu")
+    cc = g.cellcfg
+    # the draws of one pass and one HMC move from the same keys
+    kd = J.fold_in(g.states.key, 3)
+    dg = CB.pass_draws(kd, cc.ncolors, cc.cells_per_color, g.states.dpos)
+    dc = CB.pass_draws(kd.cpu(), cc.ncolors, cc.cells_per_color,
+                       c.states.dpos)
+    for k, a, b in zip(("shift", "order", "u", "disp"), dg, dc):
+        check(torch.equal(a.cpu(), b), f"[gather-small] draws differ: {k}")
+    ln_ulps = f32_ulps(dg[4], dc[4])
+    ng, nc = J.normal(g.states.key, (108, 3)), J.normal(c.states.key,
+                                                       (108, 3))
+    n_ulps = f32_ulps(ng, nc)
+    n_share = float((ng.cpu() != nc).float().mean())
+    log(f"[gather-small] draws: shift, colour order, picks and displacements"
+        f" equal bit for bit; ln u within {ln_ulps} f32 ulps; HMC normals "
+        f"within {n_ulps} ulps, {100 * n_share:.2f}% not equal (the card's "
+        "log and log1p against the CPU's)")
+    # one pass from the same state, eager on both: each decision's margin
+    one_pass = CB.make_cb_pass_fn(g.us.kb, cc)
+    tg, tc = [], []
+    sg, _ = one_pass(g.pot, g.table, g.states, g.nls, g.aux, g.states.dpos,
+                     kd, trace=tg)
+    sc, _ = one_pass(c.pot, c.table, c.states, c.nls, c.aux, c.states.dpos,
+                     kd.cpu(), trace=tc)
+    differ, margins = 0, []
+    for (vg, ag, mg), (vc, ac, mc) in zip(tg, tc):
+        bad = (ag.cpu() != ac) & vc
+        differ += int(bad.sum())
+        margins += mc[bad].abs().tolist()
+    ndec = int(sum(int(v.sum()) for v, _, _ in tc))
+    log(f"[gather-small] one pass, {ndec} decisions: {differ} differ"
+        + (f", margins {margins}" if differ else ""))
+    check(all(m < G_MARGIN for m in margins),
+          f"[gather-small] a decision differs beyond rounding: {margins}")
+    if not differ:
+        pos_err = float((sg.pos.cpu() - sc.pos).abs().max())
+        check(pos_err <= G_POS * float(sc.box.max()),
+              f"[gather-small] pass positions differ by {pos_err}")
+    # one chunk: graphs against eager on the card (bits), card against CPU
+    ENS.reset_counts()
+    a = gather_chunk(cfg, DEV)
+    counts = dict(ENS.COUNTS)
+    e = gather_chunk(cfg, DEV, graphs=False)
+    for f in FIELDS:
+        check(torch.equal(getattr(a[0].states, f), getattr(e[0].states, f)),
+              f"[gather-small] graphs against eager: {f} differs")
+    check(torch.equal(a[0].states.key, e[0].states.key)
+          and torch.equal(a[2][0], e[2][0]),
+          "[gather-small] graphs against eager: keys or frames differ")
+    err = hold_chunk(a, gather_chunk(cfg, "cpu"), "gather-small")
+    check(a[5] == 0, f"[gather-small] diag {a[5]}")
+    log(f"[gather-small] chunk of 2 x 2 sweeps, xacc {a[4].tolist()}: CUDA "
+        f"graphs equal eager bit for bit; against the CPU hist, xacc and "
+        f"decisions equal, pe rel {err['pe']:.2e}, virial {err['virial']:.2e}"
+        f", vol {err['vol']:.2e}, frames {err['pos']:.2e} of the box edge; "
+        f"{counts} on {name}")
+
+
+def phase_gather_physics(name):
+    """The physics phase's configuration and gate on the gather engine
+    (melting_pipeline's default), printed beside the JAX gather chains of
+    the same seeds."""
+    with open(LJ_REFERENCE) as f:
+        ref = json.load(f)
+    tms, secs, ms_sweep = [], [], []
+    for seed in ref["chain_seeds"]:
+        cfg = validation_cfg(seed)
+        ENS.reset_counts()
+        t = time.perf_counter()
+        res = melting_pipeline(cfg, nbins=48, model="mlp", epochs=400,
+                               band=2)
+        secs.append(time.perf_counter() - t)
+        sweeps = ENS.COUNTS["sweeps"]
+        check(sweeps == cfg.nsmpl * cfg.mod, f"[gather-physics] seed {seed}:"
+              f" {sweeps} gather sweeps, not {cfg.nsmpl * cfg.mod}")
+        ms_sweep.append(1e3 * res.seconds["sampling"] / sweeps)
+        check(res.diag == 0 and np.isfinite(res.tm).all(),
+              f"[gather-physics] seed {seed}: diag {res.diag}, T_m {res.tm}")
+        tms.append(res.tm)
+        log(f"[gather-physics] seed {seed}: T_m(P*)={np.round(res.tm, 4)}; "
+            f"{secs[-1]:.1f} s (sampling {res.seconds['sampling']:.1f} s, "
+            f"{ms_sweep[-1]:.2f} ms a sweep, {ENS.COUNTS['rebuilds']} "
+            f"rebuilds, {ENS.COUNTS['syncs']} syncs)")
+    port = np.asarray(tms)[:, 0]
+    jax_tm = np.asarray([c["tm"][0] for c in ref["chains"]])
+    mean = float(port.mean())
+    err = abs(mean / 0.78 - 1.0)
+    log(f"[gather-physics] T_m(P*=1) by chain (seeds {ref['chain_seeds']}): "
+        f"port {np.round(port, 4).tolist()}, JAX gather "
+        f"{np.round(jax_tm, 4).tolist()}, port - JAX "
+        f"{np.round(port - jax_tm, 4).tolist()}")
+    log(f"[gather-physics] mean T_m(P*=1) port {mean:.4f} (sd "
+        f"{port.std(ddof=1):.4f}), JAX {jax_tm.mean():.4f}; |mean/0.78 - 1|"
+        f" = {err:.4f} (gate 0.02: {'PASS' if err <= 0.02 else 'MISS'}); "
+        f"port - JAX {mean - jax_tm.mean():+.4f}; {np.mean(secs):.1f} s a "
+        f"chain, {np.mean(ms_sweep):.2f} ms a sweep (sampling incl. set-up),"
+        f" {sum(secs):.1f} s in all on {name}")
+    check(err <= 0.02,
+          f"[gather-physics] mean T_m(P*=1)={mean} misses the 2% gate")
+
+
+def phase_gather_hmc(name):
+    """One chunk at 256 atoms with HMC (8 leapfrog steps, a setting whose
+    trajectories stay inside the list's budget: the JAX package's chunk
+    of it on the CPU gives diag 0 too)."""
+    cfg = RunConfig(name="ghmc", element="LJ", ncells=(4, 4, 4), npress=2,
+                    ntemp=2, press=(1.0, 4.0), temp=(0.7, 1.1), nsmpl=2,
+                    mod=4, ncut=0, seed=5, phmc=0.05, nstps=8)
+    setup, recs, _, _, _, diag = runner.run_sampling(
+        runner.setup_run(cfg, device=DEV), write_files=False)
+    acc = recs.acc_hmc.cpu()
+    check(diag == 0, f"[gather-hmc] diag {diag} (8: NL_STALE)")
+    check(float(acc.max()) > 0, "[gather-hmc] no HMC move accepted")
+    st = setup.states
+    nls, _ = ENS.build_ensemble_nl(setup.pot, st, setup.cfg.skin,
+                                   capacity=setup.cap)
+    pe_list, _ = NB.pair_energy_virial(setup.pot, st.pos, st.box, nls)
+    pe_brute = torch.stack([pair_energy_virial(setup.pot, st.pos[r],
+                                               st.box[r])[0]
+                            for r in range(st.pos.shape[0])])
+    e1 = float(((st.pe - pe_list).abs() / pe_list.abs()).max())
+    e2 = float(((pe_brute - pe_list).abs() / pe_list.abs()).max())
+    log(f"[gather-hmc] 4 replicas x 256 atoms, 2 x 4 sweeps, one HMC move a "
+        f"sweep: acc_hmc by record {np.round(acc.numpy(), 3).tolist()}, "
+        f"diag {diag}; pe against a fresh list total rel {e1:.2e}, the fresh "
+        f"list against brute force rel {e2:.2e} (limit {G_RTOL}) on {name}")
+    check(e1 <= G_RTOL and e2 <= G_RTOL, "[gather-hmc] pe off its total")
+
+
+def phase_gather_full(name):
+    """4096 atoms on the JAX CLI's default 4x16 grid (R=64), one chunk of
+    2 records x 4 sweeps through setup_run(engine="gather"); then one
+    sweep and its record under torch.profiler."""
+    cfg = RunConfig(name="gfull", element="LJ", ncells=(16, 8, 8), npress=4,
+                    ntemp=16, nsmpl=2, mod=4, ncut=0, seed=1234)
+    torch.cuda.reset_peak_memory_stats()
+    t = runner.timed(DEV)
+    setup = runner.setup_run(cfg, device=DEV)
+    t_setup = runner.timed(DEV) - t
+    ENS.reset_counts()
+    setup, _, _, _, _, diag = runner.run_sampling(setup, write_files=False)
+    t_chunk = runner.timed(DEV) - t - t_setup
+    counts = dict(ENS.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(diag == 0, f"[gather-full] diag {diag}")
+    sweeps = cfg.nsmpl * cfg.mod
+    rate = float(setup.moves_tried) / t_chunk
+    log(f"[gather-full] R=64 x 4096 atoms, cells {setup.cellcfg.ncell}, K="
+        f"{setup.cap}, {CB.default_npasses(4096, setup.cellcfg)} passes a "
+        f"sweep: set-up {t_setup:.2f} s; chunk {t_chunk:.2f} s (the first "
+        f"one: it captures the CUDA graphs), {1e3 * t_chunk / sweeps:.1f} ms "
+        f"a sweep, {rate:.4e} attempted moves/s; a sweep "
+        f"{counts['rebuilds'] / sweeps:.2f} rebuilds, "
+        f"{counts['syncs'] / sweeps:.2f} host syncs, "
+        f"{counts['replays'] / sweeps:.2f} graph replays; peak memory "
+        f"{peak:.2f} GiB on {name}")
+    ENS.reset_counts()
+    moves0 = float(setup.moves_tried)
+    t = runner.timed(DEV)
+    setup, _, _, _, _, diag = runner.run_sampling(setup, write_files=False)
+    t2 = runner.timed(DEV) - t
+    check(diag == 0, f"[gather-full] second chunk diag {diag}")
+    log(f"[gather-full] a second chunk: {1e3 * t2 / sweeps:.1f} ms a sweep, "
+        f"{(float(setup.moves_tried) - moves0) / t2:.4e} attempted moves/s, "
+        f"{ENS.COUNTS['rebuilds']} rebuilds")
+    run = ENS.make_ensemble_run_fn(
+        setup.us.kb, setup.us.p2e, setup.cellcfg, skin=cfg.skin,
+        capacity=setup.cap, mod=1, nrecords=1,
+        nvol=runner.nvol_per_sweep(cfg, 4096), natoms=4096, exchange=True,
+        npress=4, ntemp=16, write_traj=False)
+    args = (setup.states, setup.nls, setup.aux, setup.slot_of,
+            J.key(cfg.seed + 1).to(DEV), setup.pot, setup.table,
+            setup.t_grid, setup.p_grid)
+    run(*args)                                 # capture, outside the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kern = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_ms(ev) for ev in kern)
+    log(f"[gather-full] one sweep and its record under torch.profiler: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({sum(ev.count for ev in kern)} kernels), busy share "
+        f"{busy / wall:.4f}; the most device time: " + ", ".join(
+            f"{kernel_label(ev.key)} {_device_ms(ev):.1f} ms x{ev.count}"
+            for ev in sorted(kern, key=_device_ms, reverse=True)[:4]))
+
+
+# ---------------------------------------------------------------------------
 # EAM path
 # ---------------------------------------------------------------------------
 
@@ -1114,7 +1413,7 @@ def phase_cli(name):
     out, out2 = os.path.join(tmp, "out"), os.path.join(tmp, "restart")
     argv = ["-n", "cli", "-e", "LJ", "-ss", "16", "8", "8", "-pn", "8",
             "-pr", "1", "8", "-tn", "8", "-tr", "0.7", "1.3", "-sn", "4",
-            "-sm", "8", "-sc", "1", "-sd", "1234"]
+            "-sm", "8", "-sc", "1", "-sd", "1234", "--engine", "cellmc"]
     prefix = "cli.lj.fcc.16x8x8"
     secs = {}
     CK.reset_launches()
@@ -1193,6 +1492,31 @@ def phase_cli(name):
     log(f"[cli] seconds: " + ", ".join(f"{k} {v:.2f}"
                                        for k, v in secs.items())
         + f"; text writer: {native.writer()} on {name}")
+    # remcmc with no --engine runs gather (the JAX package's default) at a
+    # small configuration, then resumes from its checkpoint
+    outg = os.path.join(tmp, "gather")
+    argv = ["-n", "clig", "-e", "LJ", "-ss", "4", "-pn", "2", "-pr", "1", "4",
+            "-tn", "4", "-tr", "0.6", "1.2", "-sn", "4", "-sm", "4", "-sd",
+            "5"]
+    ENS.reset_counts()
+    t = time.perf_counter()
+    sg = json.loads(run_stage(CLI_REMCMC.main, argv + ["-o", outg])
+                    .strip().splitlines()[-1])
+    tg = time.perf_counter() - t
+    sweeps = ENS.COUNTS["sweeps"]
+    sg2 = json.loads(run_stage(CLI_REMCMC.main, argv + [
+        "-sn", "2", "-o", outg + "2", "--restart",
+        os.path.join(outg, "clig.lj.ckpt.npz")]).strip().splitlines()[-1])
+    first = slot_pe(outg + "2", "clig.lj.fcc.4x4x4", 256)[:, 0]
+    last = slot_pe(outg, "clig.lj.fcc.4x4x4", 256)[:, -1]
+    gap = float(np.max(np.abs(first - last)))
+    log(f"[cli] remcmc, default engine (gather), 8 x 256 atoms, 4 x 4 sweeps:"
+        f" diag {sg['diag']}, {sweeps} gather sweeps, {tg:.2f} s; --restart "
+        f"for 2 records: diag {sg2['diag']}, per slot |first pe/N - "
+        f"checkpointed last| <= {gap:.4f} (limit {RESTART_TOL})")
+    check(sg["diag"] == 0 and sg2["diag"] == 0 and sweeps == 16,
+          f"[cli] gather remcmc: {sg}, {sg2}, {sweeps} sweeps")
+    check(gap <= RESTART_TOL, f"[cli] gather restart pe/N moved by {gap}")
 
 
 def phase_bench(name):
@@ -2103,6 +2427,10 @@ def main():
               ("full", lambda: phase_full(name)),
               ("main", lambda: phase_main(name)),
               ("physics", lambda: phase_physics(name)),
+              ("gather-small", lambda: phase_gather_small(name)),
+              ("gather-physics", lambda: phase_gather_physics(name)),
+              ("gather-hmc", lambda: phase_gather_hmc(name)),
+              ("gather-full", lambda: phase_gather_full(name)),
               ("eam-small", lambda: phase_eam_small(table)),
               ("eam-full", lambda: phase_eam_full(name, table)),
               ("eam-main", lambda: phase_eam_main(name, table)),

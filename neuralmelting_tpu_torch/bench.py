@@ -173,7 +173,7 @@ def measure(cfgs, device) -> dict:
     "eam": ...}) on ``device``."""
     dev = runner.resolve_device(device)
     row = {}
-    setup = runner.setup_run(cfgs["lj"], device=dev)
+    setup = runner.setup_run(cfgs["lj"], engine="cellmc", device=dev)
     setup, rate, sec, diag = kernel_row(setup)
     row.update(lj_kernel_moves_per_sec=rate, lj_kernel_sec_per_chunk=sec,
                lj_kernel_diag=diag, lj_kcap=setup.geom.kcap)
@@ -185,7 +185,8 @@ def measure(cfgs, device) -> dict:
     with tempfile.TemporaryDirectory(prefix="nm_bench_") as tmp:
         table = os.path.join(tmp, "al38.eam.alloy")
         eam_gen.write_setfl(table, rc=3.8)
-        setup = runner.setup_run(cfgs["eam"], setfl=table, device=dev)
+        setup = runner.setup_run(cfgs["eam"], setfl=table, engine="cellmc",
+                                 device=dev)
     setup, rate, sec, diag = kernel_row(setup)
     row.update(eam_moves_per_sec=rate, eam_sec_per_chunk=sec, eam_diag=diag,
                eam_kcap=setup.geom.kcap, eam_natoms=setup.natoms,

@@ -32,7 +32,9 @@ def add_run_args(ap: argparse.ArgumentParser):
                     default=0.96875)
     ap.add_argument("-vp", "--volume-probability", type=float,
                     default=0.03125)
-    ap.add_argument("-hp", "--hmc-probability", type=float, default=0.0)
+    ap.add_argument("-hp", "--hmc-probability", "--phmc", type=float,
+                    default=0.0, help="> 0: one HMC move a sweep (gather "
+                                      "engine only)")
     ap.add_argument("-ns", "--nstps", type=int, default=16,
                     help="HMC leapfrog steps")
     ap.add_argument("-sd", "--seed", type=int, default=256)

@@ -49,11 +49,13 @@ def main(argv=None):
     add_run_args(ap)
     ap.add_argument("-o", "--outdir", default="output")
     ap.add_argument("--no-traj", action="store_true")
-    ap.add_argument("--engine", default="cellmc",
+    ap.add_argument("--engine", default="gather",
                     choices=("gather", "dense", "cellmc"),
-                    help="cellmc = the cell-MC CUDA kernels (LJ stride-2, "
-                         "EAM stride-3 Chebyshev); gather and dense are "
-                         "not ported (the runner names their ROADMAP items)")
+                    help="gather (default) = checkerboard passes over "
+                         "neighbour lists, LJ, the only engine with HMC "
+                         "(--phmc); cellmc = the cell-MC CUDA kernels (LJ "
+                         "stride-2, EAM stride-3 Chebyshev); dense is not "
+                         "ported (the runner names its ROADMAP item)")
     ap.add_argument("--restart", default=None,
                     help="checkpoint .npz to resume from")
     ap.add_argument("--profile", default=None, metavar="DIR",

@@ -7,11 +7,15 @@ int32, ``config`` (the ``RunConfig`` JSON as bytes) and each extra entry
 as ``x_<name>``. The JAX package's ``checkpoint.load`` reads a port
 checkpoint and this ``load`` reads a JAX one.
 
-Port ensembles carry no per-replica key (``sampler/state.py``), so
-``save`` writes ``key_data`` as the JAX ``ensemble_init`` derives it,
-``fold_in(key(seed), r)`` for replica r (``ops/jrandom.py``), with the
-seed read from the config; ``load`` drops it. What the port's runner
-needs for an exact resume travels as extras (``runner.checkpoint_extras``).
+``key_data`` holds the replicas' live keys where the ensemble carries
+them (the gather engine, ``sampler/state.py``), so a resumed run goes on
+with its own draws. A cellmc ensemble carries none (its host draws come
+from a ``torch.Generator``): for it ``save`` writes the keys the JAX
+``ensemble_init`` derives, ``fold_in(key(seed), r)`` for replica r
+(``ops/jrandom.py``), with the seed read from the config. ``load``
+restores ``key_data`` as the states' keys, on ``device``. What the port's
+runner needs besides for an exact resume travels as extras
+(``runner.checkpoint_extras``).
 """
 
 from __future__ import annotations
@@ -40,13 +44,17 @@ def _host(v):
 def save(path: str, states: MCState, slot_of, config_json: str = "{}",
          extra: dict = None):
     """Write ``states`` (an ensemble, leading R), ``slot_of``, the config
-    (its ``seed`` derives ``key_data``; 0 without one) and the extras."""
-    seed = json.loads(config_json).get("seed", 0)
+    and the extras; ``key_data`` the states' keys, or without keys those
+    the config's ``seed`` derives (0 without one)."""
     arrays = {}
     for f in FIELDS:
         dt = np.int32 if f in _INT_FIELDS else np.float32
         arrays[f] = _host(getattr(states, f)).astype(dt)
-    arrays["key_data"] = ensemble_key_data(seed, states.temp.shape[0])
+    if states.key is not None:
+        arrays["key_data"] = _host(states.key).astype(np.uint32)
+    else:
+        seed = json.loads(config_json).get("seed", 0)
+        arrays["key_data"] = ensemble_key_data(seed, states.temp.shape[0])
     arrays["slot_of"] = _host(slot_of).astype(np.int32)
     for k, v in (extra or {}).items():
         arrays["x_" + k] = _host(v)
@@ -55,16 +63,18 @@ def save(path: str, states: MCState, slot_of, config_json: str = "{}",
 
 
 def load(path: str, device="cpu"):
-    """Returns (states, slot_of, config_json, extra): ``states`` and
-    ``slot_of`` as tensors on ``device`` (f32 fields, int32 counters),
-    ``extra`` the ``x_`` entries as numpy arrays."""
+    """Returns (states, slot_of, config_json, extra): ``states`` (their
+    ``key`` the (R, 2) ``key_data`` words) and ``slot_of`` as tensors on
+    ``device`` (f32 fields, int32 counters), ``extra`` the ``x_`` entries
+    as numpy arrays."""
     with np.load(path) as z:
         def t(name, dt):
             return torch.as_tensor(np.asarray(z[name]), dtype=dt,
                                    device=device)
 
         states = MCState(**{f: t(f, torch.int32 if f in _INT_FIELDS
-                                 else torch.float32) for f in FIELDS})
+                                 else torch.float32) for f in FIELDS},
+                         key=jrandom.key_data(z["key_data"]).to(device))
         slot_of = t("slot_of", torch.int32)
         config_json = bytes(z["config"]).decode() if "config" in z \
             else "{}"

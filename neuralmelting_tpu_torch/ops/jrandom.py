@@ -1,8 +1,8 @@
-"""The ``jax.random`` stream, in torch: the host draws of the serial engine.
+"""The ``jax.random`` stream, in torch: the serial and gather engines' draws.
 
 Counterpart of the parts of ``jax.random`` (jax 0.9.0, threefry2x32 keys,
-``jax_threefry_partitionable=True``) that the JAX package's serial engine
-draws from, bit for bit, on CPU and CUDA tensors alike:
+``jax_threefry_partitionable=True``) that the JAX package's serial and
+gather engines draw from, bit for bit, on CPU and CUDA tensors alike:
 
 * ``key(seed)``: the words [0, seed mod 2^32] (jax in 32-bit mode);
 * ``split(key, n)``: word pair i = threefry(key, (0, i));
@@ -15,12 +15,17 @@ draws from, bit for bit, on CPU and CUDA tensors alike:
   package's golden files, contracts it into an FMA (``fma32``);
 * ``randint``: JAX's two-draw modulus algorithm on 32-bit words;
 * ``normal``: sqrt(2) erfinv(uniform(nextafter(-1, 0), 1)), with XLA's
-  f32 erfinv polynomial (``erfinv``).
+  f32 erfinv polynomial (``erfinv``);
+* ``permutation(key, n)``: JAX's sort-based shuffle of arange(n),
+  ceil(3 ln n / ln(2^32 - 1)) rounds, each a ``split`` and a stable sort
+  on 32-bit ``random_bits``.
 
 A key is a tensor of two words (..., 2), each a uint32 value held in
 int64 as in ``ops/rng.py``; leading axes batch: ``split`` of (..., 2)
 gives (..., n, 2), the draws give (..., *shape). ``key_data`` gives a
-JAX key's words in that form.
+JAX key's words in that form. No function copies host data to a CUDA
+device (Python numbers become fills), so a CUDA graph can capture the
+draws.
 
 Where this is not JAX's bits: ``erfinv`` evaluates XLA's polynomial
 (its multiply-adds contracted, as in ``uniform``) on
@@ -81,9 +86,18 @@ def split(k, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
+def _i64(v, device) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.int64)
+    if isinstance(v, int):
+        return torch.full((), v, dtype=torch.int64, device=device)
+    return torch.as_tensor(v, dtype=torch.int64, device=device)
+
+
 def fold_in(k, data) -> torch.Tensor:
-    """``jax.random.fold_in``: (..., 2) and a uint32 datum -> (..., 2)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & _MASK
+    """``jax.random.fold_in``: (..., 2) and uint32 data -> (..., 2); data
+    of shape D broadcasts against the key's leading axes."""
+    d = _i64(data, k.device) & _MASK
     b0, b1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([b0, b1], dim=-1)
 
@@ -103,7 +117,9 @@ def floats01(bits) -> torch.Tensor:
 
 
 def _f32(v, device):
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def fma32(a, b, c) -> torch.Tensor:
@@ -158,6 +174,22 @@ def erfinv(x) -> torch.Tensor:
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = fma32(p, w, torch.where(lt, _f32(a, x.device), _f32(b, x.device)))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def permutation(k, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for an int n: (..., 2) keys ->
+    (..., n) int64. Each round splits the key in two, draws 32-bit sort
+    keys from the second half and sorts stably on them."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device).expand(
+        *k.shape[:-1], n)
+    for _ in range(rounds):
+        k, sub = split(k, 2).unbind(-2)
+        order = torch.sort(random_bits(sub, (n,)), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

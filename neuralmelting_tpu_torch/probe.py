@@ -216,27 +216,32 @@ def time_ms(fn, min_ms=10.0):
         n = max(2 * n, int(math.ceil(n * 1.2 * min_ms / max(total, 1e-3))))
 
 
-def device_ms(fn, calls, match):
+def device_ms(fn, calls, match, tries=3):
     """Mean device time (ms) of the kernels whose name contains ``match``
     over ``calls`` calls of ``fn``, from torch.profiler: the kernel's own
-    time, without the host's time to issue it."""
+    time, without the host's time to issue it. A profiler session that
+    records none of them (seen once on the card, late in a long process,
+    where the same session alone recorded them) is run again, up to
+    ``tries`` sessions."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if match in ev.key and ev.device_type == \
-                torch.autograd.DeviceType.CUDA:
-            t = getattr(ev, "self_device_time_total", None)
-            total += ev.self_cuda_time_total if t is None else t
-            count += ev.count
-    if count == 0 or total <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {match!r}")
-    return total / count / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if match in ev.key and ev.device_type == \
+                    torch.autograd.DeviceType.CUDA:
+                t = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if t is None else t
+                count += ev.count
+        if count > 0 and total > 0:
+            return total / count / 1e3
+    raise RuntimeError(f"the profiler saw no device time of {match!r} in "
+                       f"{tries} sessions")
 
 
 def issue_ceiling(variant):

@@ -1,23 +1,31 @@
 """Host-side run orchestration: config -> ensemble -> chunks -> files
-(counterpart of ``neuralmelting_tpu.runner``, its single-process cellmc
-path, LJ and EAM).
+(counterpart of ``neuralmelting_tpu.runner``, its single-process gather
+and cellmc paths).
 
 Builds the potential and the replica ensemble from a ``RunConfig`` on a
-``device`` (the card unless the caller passes ``device="cpu"``), bins it
-into slabs, and advances it in chunks with tempering, geometry
-maintenance (kcap hysteresis, cell-grid refresh) and the slab-overflow
-retry from a pre-chunk snapshot. LJ runs on stride-2 cells with kernels
-B1/B2; EAM ("eam/alloy", element "AL") samples the Chebyshev refit of
-its setfl table on stride-3 cells with one mover per cell and a density
-slab, kernels B3/B4. A chunk can log a ``sampling_chunk`` metrics event,
-write the per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a
-checkpoint (``io/checkpoint.py``) that ``restore_setup`` resumes exactly.
+``device`` (the card unless the caller passes ``device="cpu"``) and
+advances it in chunks with tempering. Two engines:
 
-Not here yet, each named with the ROADMAP item that brings it: the
-gather/serial engines (A13), the dense engine (A14, not ported),
-coexistence runs without exchange beyond the plain ``exchange=False``
-chunk (A10), multi-GPU (A12). Unlike the JAX runner there is no compile
-cache (nothing is traced) and no scoped-VMEM guard (a TPU compiler limit).
+* ``gather`` (the default, as in the JAX package; LJ): checkerboard
+  passes over per-replica neighbour lists (parallel/ensemble.py) on
+  stride-4 cells, every draw from the replicas' ``jax.random`` keys, with
+  volume trials and, with ``phmc > 0``, one HMC move a sweep; exchange
+  is always on;
+* ``cellmc`` (LJ and EAM): the ensemble binned into slabs, geometry
+  maintenance (kcap hysteresis, cell-grid refresh) and the slab-overflow
+  retry from a pre-chunk snapshot. LJ runs on stride-2 cells with
+  kernels B1/B2; EAM ("eam/alloy", element "AL") samples the Chebyshev
+  refit of its setfl table on stride-3 cells with one mover per cell and
+  a density slab, kernels B3/B4.
+
+A chunk can log a ``sampling_chunk`` metrics event, write the
+per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a checkpoint
+(``io/checkpoint.py``) that ``restore_setup`` resumes exactly.
+
+Not here yet, each named with the ROADMAP item that brings it: EAM on
+the gather engine (A13 item 3), the dense engine (A14, not ported),
+multi-GPU (A12). Unlike the JAX runner there is no compile cache
+(nothing is traced) and no scoped-VMEM guard (a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -42,11 +50,14 @@ from neuralmelting_tpu_torch.models.lattice import make_supercell
 from neuralmelting_tpu_torch.models.lj import LJCut
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
+from neuralmelting_tpu_torch.ops import cells as cells_ops
+from neuralmelting_tpu_torch.ops import jrandom
+from neuralmelting_tpu_torch.ops import potential_ops as PO
+from neuralmelting_tpu_torch.parallel import ensemble as ENS
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 from neuralmelting_tpu_torch.sampler.state import ensemble_init
 
 _LATER = {
-    "gather": "ROADMAP A13 (reference-exact engines)",
     "serial": "the JAX runner has none either (ROADMAP A13); one serial "
               "chain runs through sampler/serial.py, see golden.py",
     "dense": "ROADMAP A14 (the dense/MXU engine is not ported)",
@@ -67,7 +78,17 @@ class RunSetup:
     slot_of: torch.Tensor      # (R,) replica -> slot
     natoms: int
     device: torch.device
-    gen: torch.Generator       # host draws (volume, rebin, exchange)
+    gen: Optional[torch.Generator]  # cellmc host draws (volume, rebin,
+                                    # exchange); None on gather
+    engine: str = "gather"     # "gather" | "cellmc"
+    mass: float = 1.0
+    # gather engine: per-replica neighbour lists, the potential cache,
+    # the list capacity and the stride-4 checkerboard
+    nls: object = None
+    aux: object = None
+    cap: int = 0
+    cellcfg: object = None
+    table: object = None       # (ncolors, M) int64 colour table
     geom: object = None
     slabs: object = None       # (x, y, z, ids[, rho]) leading-R
     slab_count: object = None  # (R, C) int32
@@ -116,18 +137,23 @@ def _eam_rho(geom, states, slabs, cheb, dev):
 
 
 def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
-              engine: str = "cellmc", device="cuda") -> RunSetup:
-    """The ensemble of ``cfg`` on ``device``, binned into slabs with exact
-    energies. ``device`` is the card unless the caller asks for "cpu";
+              engine: str = "gather", device="cuda") -> RunSetup:
+    """The ensemble of ``cfg`` on ``device`` with exact energies: on the
+    gather engine (the default) with its neighbour lists and the JAX
+    runner's stride-4 checkerboard, on the cellmc engine binned into
+    slabs. ``device`` is the card unless the caller asks for "cpu";
     without a usable GPU the default raises."""
-    if engine != "cellmc":
+    if engine not in ("gather", "cellmc"):
         raise NotImplementedError(
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
-    if cfg.phmc > 0:
-        raise ValueError(
-            f"HMC (phmc={cfg.phmc}) is not offered on the cellmc engine")
-    dev = resolve_device(device)
     el = ELEMENTS[cfg.element]
+    if engine == "gather" and el.potential.style != "lj/cut":
+        raise NotImplementedError(PO.EAM_LATER)
+    if cfg.phmc > 0 and engine == "cellmc":
+        raise ValueError(
+            f"HMC (phmc={cfg.phmc}) is not offered on the cellmc engine: "
+            "use the gather engine, or drop phmc")
+    dev = resolve_device(device)
     us = units.get(el.units)
     pot, style = build_potential(cfg, setfl)
     press, temp = grids(cfg)
@@ -139,6 +165,24 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
                              device=dev)
     pos, box = make_supercell(el.lattice, el.lat_const, cfg.ncells)
     n = len(pos)
+    slot_of = torch.arange(r, dtype=torch.int32, device=dev)
+    if engine == "gather":
+        states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
+                               dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev,
+                               seed=cfg.seed)
+        cellcfg = cells_ops.make_cell_config(box, pot.rc_host, stride=4,
+                                             dpos_cap=0.25)
+        cap = cfg.max_neighbors if cfg.max_neighbors > 0 else None
+        nls, cap = ENS.build_ensemble_nl(pot, states, skin=cfg.skin,
+                                         capacity=cap, box_host=box)
+        setup = RunSetup(
+            cfg=cfg, pot=pot, style=style, us=us, press=press, temp=temp,
+            t_grid=t_grid, p_grid=p_grid, states=states, slot_of=slot_of,
+            natoms=n, device=dev, gen=None, engine="gather", mass=el.mass,
+            cap=cap, cellcfg=cellcfg,
+            table=ENS.table_tensor(cellcfg, dev),
+            moves_tried=torch.zeros((), dtype=torch.int64, device=dev))
+        return _install_lists(setup, states, nls)
     states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
                            dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev)
     shift = torch.zeros((3,), dtype=torch.float32, device=dev)
@@ -161,12 +205,23 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     return RunSetup(
         cfg=cfg, pot=pot, style=style, us=us, press=press, temp=temp,
         t_grid=t_grid,
-        p_grid=p_grid, states=states,
-        slot_of=torch.arange(r, dtype=torch.int32, device=dev), natoms=n,
-        device=dev, gen=gen, geom=geom, slabs=slabs,
+        p_grid=p_grid, states=states, slot_of=slot_of, natoms=n,
+        device=dev, gen=gen, engine="cellmc", mass=el.mass, geom=geom,
+        slabs=slabs,
         slab_count=slab_count, shift=shift,
         cell_tabs=torch.as_tensor(CG.geom_tables(geom), device=dev),
         moves_tried=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _install_lists(setup: RunSetup, states, nls) -> RunSetup:
+    """The gather setup on these states and lists, with the potential
+    cache and exact pe/virial from the lists."""
+    aux = ENS.build_ensemble_aux(setup.pot, states, nls)
+    pe, vir = PO.ops_for_style(setup.style).total(setup.pot, states.pos,
+                                                  states.box, nls)
+    return dataclasses.replace(setup, states=states.replace(pe=pe,
+                                                            virial=vir),
+                               nls=nls, aux=aux)
 
 
 def _bin_tightened(geom, states, shift):
@@ -211,11 +266,18 @@ def _rebind_cellmc(setup: RunSetup, geom) -> RunSetup:
 
 
 def checkpoint_extras(setup: RunSetup) -> dict:
-    """What an exact resume needs beyond the states and ``slot_of``: the
-    host generator's state and device, and the slabs as the chunk left
-    them (geometry, grid shift, coordinates in the shifted frame and the
-    atom of every slot). The density slab of EAM is recomputed at
-    restore, as exactly as the last record computed it."""
+    """What an exact resume needs beyond the states (their keys included)
+    and ``slot_of``. Gather: the positions and boxes the neighbour lists
+    were built from and their capacity, so the restored lists are the
+    same lists. Cellmc: the host generator's state and device, and the
+    slabs as the chunk left them (geometry, grid shift, coordinates in
+    the shifted frame and the atom of every slot). The density slab of
+    EAM is recomputed at restore, as exactly as the last record computed
+    it."""
+    if setup.engine == "gather":
+        return {"nl_ref_pos": setup.nls.ref_pos,
+                "nl_ref_box": setup.nls.ref_box,
+                "nl_capacity": np.int32(setup.cap)}
     g = setup.geom
     return {"gen_state": setup.gen.get_state(),
             "gen_device": np.str_(setup.device.type),
@@ -226,15 +288,20 @@ def checkpoint_extras(setup: RunSetup) -> dict:
 
 
 def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
-    """Resume from a checkpoint: replaces the states and ``slot_of`` and
-    rebuilds every position-derived structure from the restored
-    ensemble, never from the lattice of ``setup``. A port checkpoint
-    brings its slabs, grid shift and generator state, so the run goes on
-    as if it had not stopped; a JAX package checkpoint has none of them:
-    its positions are re-binned at shift 0 through ``_rebind_cellmc``
-    (whose kcap grow-and-retry absorbs a compressed box) and the
-    generator restarts from ``cfg.seed``, with a warning. Warns when the
-    stored config differs from the current one."""
+    """Resume from a checkpoint: replaces the states (their keys
+    included) and ``slot_of`` and rebuilds every position-derived
+    structure from the restored ensemble, never from the lattice of
+    ``setup``. Gather: the neighbour lists, the potential cache and the
+    energies; a port checkpoint brings the positions and boxes its lists
+    were built from, so they are the same lists and the run goes on as if
+    it had not stopped; a JAX package checkpoint has none, and its lists
+    are built from its positions, as the JAX runner builds them. Cellmc:
+    a port checkpoint brings its slabs, grid shift and generator state; a
+    JAX package checkpoint has none of them: its positions are re-binned
+    at shift 0 through ``_rebind_cellmc`` (whose kcap grow-and-retry
+    absorbs a compressed box) and the generator restarts from
+    ``cfg.seed``, with a warning. Warns when the stored config differs
+    from the current one."""
     states, slot_of, cfg_json, extra = ckpt.load(checkpoint_path,
                                                  setup.device)
     if cfg_json not in ("{}", setup.cfg.to_json()):
@@ -244,6 +311,8 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
         raise ValueError(
             f"checkpoint ensemble {tuple(states.pos.shape)} does not fit "
             f"this run's {tuple(setup.states.pos.shape)} (replicas, atoms)")
+    if setup.engine == "gather":
+        return _restore_gather(setup, states, slot_of, extra)
     gen = torch.Generator(device=setup.device)
     saved = str(extra.get("gen_device", ""))
     if "gen_state" in extra and saved == setup.device.type:
@@ -270,6 +339,24 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     shift = torch.as_tensor(extra["shift"], dtype=torch.float32, device=dev)
     slabs = tuple(xyz[:, a].contiguous() for a in range(3)) + (ids,)
     return _install_slabs(setup, geom, slabs, count, shift)
+
+
+def _restore_gather(setup: RunSetup, states, slot_of, extra) -> RunSetup:
+    dev = setup.device
+    if "nl_ref_pos" in extra:
+        if int(extra["nl_capacity"]) != setup.cap:
+            raise ValueError(
+                f"checkpoint lists hold {int(extra['nl_capacity'])} "
+                f"neighbours a row, this run's {setup.cap}")
+        ref = states.replace(
+            pos=torch.as_tensor(extra["nl_ref_pos"], device=dev),
+            box=torch.as_tensor(extra["nl_ref_box"], device=dev))
+    else:
+        ref = states
+    nls, _ = ENS.build_ensemble_nl(setup.pot, ref, skin=setup.cfg.skin,
+                                   capacity=setup.cap)
+    setup = dataclasses.replace(setup, slot_of=slot_of)
+    return _install_lists(setup, states, nls)
 
 
 def _refresh_cellmc_geom(setup: RunSetup) -> RunSetup:
@@ -326,15 +413,98 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     replica-ordered, frames (positions (nrec, R, N, 3), boxes (nrec, R, 3))
     or None, hist (nrec, R) the replica -> slot map at each record, xacc
     (nrec,) accepted swaps, diag the chunk's diagnostic bits (int).
-    ``exchange=False`` keeps every replica on its slot. Then, as in the
-    JAX runner: a ``sampling_chunk`` event to ``metrics`` (a
-    ``utils.MetricsLogger``), the slot files into ``outdir`` when
-    ``write_files``, and a checkpoint to ``checkpoint_path``.
+    ``exchange=False`` keeps every replica on its slot (cellmc only, as
+    in the JAX runner). Then, as in the JAX runner: a ``sampling_chunk``
+    event to ``metrics`` (a ``utils.MetricsLogger``), the slot files into
+    ``outdir`` when ``write_files``, and a checkpoint to
+    ``checkpoint_path``.
     """
     t0 = time.time()
     cfg = setup.cfg
     npress, ntemp = len(setup.press), len(setup.temp)
     nrecords = nrecords or cfg.nsmpl
+    if setup.engine == "gather":
+        if not exchange:
+            raise ValueError(
+                "exchange=False is offered on the cellmc engine only "
+                "(coexistence experiments run there); got engine='gather'")
+        setup, recs, frames, hist, xacc, diag_host = _run_gather(
+            setup, nrecords, write_traj)
+    else:
+        setup, recs, frames, hist, xacc, diag_host = _run_cellmc(
+            setup, nrecords, write_traj, exchange)
+    if metrics is not None:
+        metrics.log("sampling_chunk", records=int(nrecords),
+                    replicas=int(hist.shape[1]), natoms=setup.natoms,
+                    seconds=round(time.time() - t0, 3), diag=diag_host,
+                    exchange_acc=[int(x) for x in xacc.tolist()])
+    if write_files and outdir is not None:
+        os.makedirs(outdir, exist_ok=True)
+        write_slot_files(cfg, outdir, recs, frames, hist, npress, ntemp,
+                         setup.natoms)
+    if checkpoint_path:
+        ckpt.save(checkpoint_path, setup.states, setup.slot_of,
+                  cfg.to_json(), checkpoint_extras(setup))
+    return setup, recs, frames, hist, xacc, diag_host
+
+
+_GATHER_DIAG = {1: "NL_OVERFLOW", 2: "CB_INVALID", 8: "NL_STALE"}
+# gather run functions by their parameters and the current CUDA stream: a
+# chunk reuses the CUDA graphs that the previous chunks of its
+# configuration captured on its stream
+_GATHER_RUNS = {}
+
+
+def _gather_run_fn(setup: RunSetup, nrecords: int, write_traj: bool):
+    cfg = setup.cfg
+    kw = dict(
+        skin=cfg.skin, capacity=setup.cap, mod=cfg.mod, nrecords=nrecords,
+        nvol=nvol_per_sweep(cfg, setup.natoms),
+        nhmc=1 if cfg.phmc > 0 else 0, nstps=cfg.nstps, mass=setup.mass,
+        factor=cfg.adapt_factor,
+        targets=(cfg.acc_target_pos, cfg.acc_target_vol,
+                 cfg.acc_target_hmc),
+        natoms=setup.natoms, exchange=True, npress=len(setup.press),
+        ntemp=len(setup.temp), style=setup.style, write_traj=write_traj)
+    stream = (torch.cuda.current_stream(setup.device).stream_id
+              if setup.device.type == "cuda" else None)
+    key = (str(setup.device), stream, setup.pot, setup.us.kb, setup.us.p2e,
+           setup.cellcfg.ncell, setup.cellcfg.stride) + tuple(kw.items())
+    if key not in _GATHER_RUNS:
+        _GATHER_RUNS[key] = ENS.make_ensemble_run_fn(
+            setup.us.kb, setup.us.p2e, setup.cellcfg, **kw)
+    return _GATHER_RUNS[key]
+
+
+def _run_gather(setup: RunSetup, nrecords: int, write_traj: bool):
+    """One gather chunk with exchange (``runner.py:632-650`` of the JAX
+    package): the run function of ``parallel/ensemble.py`` with the
+    exchange key ``key(cfg.seed + 1)``."""
+    cfg = setup.cfg
+    run = _gather_run_fn(setup, nrecords, write_traj)
+    (states, nls, aux, slot_of, recs, frames, hist, xacc, diag,
+     tried) = run(setup.states, setup.nls, setup.aux, setup.slot_of,
+                  jrandom.key(cfg.seed + 1).to(setup.device), setup.pot,
+                  setup.table, setup.t_grid, setup.p_grid)
+    diag_host = int(diag)
+    if diag_host != 0:
+        names = [v for k, v in _GATHER_DIAG.items() if diag_host & k]
+        warnings.warn(
+            f"sampling chunk finished with diagnostic flags {diag_host} "
+            f"({'|'.join(names)}): outputs may be physically wrong — "
+            "increase max_neighbors/skin or reduce step caps",
+            RuntimeWarning, stacklevel=3)
+    setup = dataclasses.replace(setup, states=states, nls=nls, aux=aux,
+                                slot_of=slot_of,
+                                moves_tried=setup.moves_tried + tried)
+    return setup, recs, frames, hist, xacc, diag_host
+
+
+def _run_cellmc(setup: RunSetup, nrecords: int, write_traj: bool,
+                exchange: bool):
+    """One cellmc chunk, with the slab-overflow retry."""
+    cfg = setup.cfg
+    npress, ntemp = len(setup.press), len(setup.temp)
     nvol = nvol_per_sweep(cfg, setup.natoms)
     targets = (cfg.acc_target_pos, cfg.acc_target_vol, cfg.acc_target_hmc)
     seed0 = (cfg.seed, cfg.seed + 7)
@@ -378,7 +548,7 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
             warnings.warn(
                 f"cell slot overflow at kcap={setup.geom.kcap}: retrying "
                 f"chunk with kcap={setup.geom.kcap + 8}", RuntimeWarning,
-                stacklevel=2)
+                stacklevel=3)
             setup = dataclasses.replace(setup, states=pre_states)
             setup = _rebind_cellmc(setup, dataclasses.replace(
                 setup.geom, kcap=setup.geom.kcap + 8))
@@ -388,22 +558,10 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
         warnings.warn(
             f"sampling chunk finished with diagnostic flags {diag_host}: "
             "outputs may be physically wrong (cell width below rc)",
-            RuntimeWarning, stacklevel=2)
+            RuntimeWarning, stacklevel=3)
     setup = dataclasses.replace(
         setup, states=states, slabs=slabs, slab_count=slab_count,
         shift=shift, slot_of=slot_of, moves_tried=setup.moves_tried + tried)
-    if metrics is not None:
-        metrics.log("sampling_chunk", records=int(nrecords),
-                    replicas=int(hist.shape[1]), natoms=setup.natoms,
-                    seconds=round(time.time() - t0, 3), diag=diag_host,
-                    exchange_acc=[int(x) for x in xacc.tolist()])
-    if write_files and outdir is not None:
-        os.makedirs(outdir, exist_ok=True)
-        write_slot_files(cfg, outdir, recs, frames, hist, npress, ntemp,
-                         setup.natoms)
-    if checkpoint_path:
-        ckpt.save(checkpoint_path, setup.states, setup.slot_of,
-                  cfg.to_json(), checkpoint_extras(setup))
     return setup, recs, frames, hist, xacc, diag_host
 
 

@@ -1,0 +1,230 @@
+"""Checkerboard NPT sweep over neighbour lists, batched over replicas
+(counterpart of ``neuralmelting_tpu.sampler.checkerboard``).
+
+One sweep = ``npasses`` passes + ``nvol`` volume trials (+ optional HMC).
+Each pass, for every replica at once:
+  1. a random fractional grid shift and a random colour order,
+  2. the particles binned into cells (one stable sort),
+  3. for each of the stride^3 colours in that order: one random particle
+     per occupied active cell, a displacement, the batched dE from the
+     neighbour list, Metropolis accept/reject in parallel (exact: see
+     ops/cells.py), and the accepted moves added into the positions.
+
+Every draw is the JAX engine's, bit for bit, from the replica's pass key
+(``ops/jrandom.py``): the split into (shift, order, colour) keys, the
+shift, ``permutation`` of the colours, one key a colour split into
+(pick, displacement, acceptance), ``uniform`` picks, displacements in
+[-dpos, dpos) with their contracted multiply-add, and ln u. A pass draws
+all its colours' numbers before its first substep; none depends on the
+state. Energies take torch's summation order, so a decision can differ
+from the JAX engine's only where its margin is at f32 rounding.
+
+The caller owns the neighbour-list discipline (parallel/ensemble.py
+rebuilds between passes); the functions here run on CPU and CUDA tensors
+alike and copy nothing from the host to the device, so a CUDA graph can
+capture a pass or a tail.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from neuralmelting_tpu_torch.ops import cells as cells_ops
+from neuralmelting_tpu_torch.ops import jrandom
+from neuralmelting_tpu_torch.ops import neighbors as NB
+from neuralmelting_tpu_torch.ops import potential_ops as PO
+from neuralmelting_tpu_torch.sampler import moves
+
+# diagnostic bit flags
+DIAG_NL_OVERFLOW = 1
+DIAG_CB_INVALID = 2
+DIAG_NL_STALE = 8  # an energy was evaluated while the skin invariant held
+                   # no longer (only HMC trajectories can do this)
+
+_SQ3 = 3.0 ** 0.5  # max |displacement| per move = sqrt(3) * dpos
+
+
+def nl_backend(pops: PO.PotentialOps, nl: NB.NeighborList
+               ) -> moves.EnergyBackend:
+    """The batched appliers' energies from the lists ``nl``."""
+    return moves.EnergyBackend(
+        total=lambda pot, pos, box: pops.total(pot, pos, box, nl),
+        delta_move=lambda pot, pos, box, i, ri: NB.delta_move_single(
+            pot, pos, box, nl, i, ri),
+        forces=lambda pot, pos, box: pops.forces(pot, pos, box, nl))
+
+
+def default_npasses(natoms: int, cellcfg: cells_ops.CellConfig) -> int:
+    """Passes per sweep so one sweep attempts ~N moves."""
+    return max(1, int(np.ceil(natoms / cellcfg.ncells_total)))
+
+
+def div(x, d):
+    """x / d for a host number d, by a true division on every device (a
+    CUDA tensor divided by a host number is multiplied by its
+    reciprocal instead)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def cb_dpos_margin(pops, pot, cellcfg: cells_ops.CellConfig, box):
+    """Checkerboard-independence margin (R,): dpos may be at most half of
+    (stride-1)*min(cell width) - interaction range. <=0 means the grid no
+    longer supports exact parallel acceptance (DIAG_CB_INVALID)."""
+    n0, n1, n2 = (int(c) for c in cellcfg.ncell)
+    w_min = torch.minimum(div(box[..., 0], n0),
+                          torch.minimum(div(box[..., 1], n1),
+                                        div(box[..., 2], n2)))
+    return (cellcfg.stride - 1) * w_min - pops.range_factor * pot.rc
+
+
+def pass_draws(pkey, ncolors: int, m: int, dpos_eff):
+    """A pass's draws from its keys (R, 2), or several passes' from (R, P,
+    2): shift (..., 3), colour order (..., C), pick uniforms (..., C, M),
+    displacements (..., C, M, 3) in [-dpos_eff, dpos_eff) (dpos_eff (R,))
+    and ln u (..., C, M)."""
+    ksh, kperm, kcol = jrandom.split(pkey, 3).unbind(-2)
+    kpick, kdisp, kacc = jrandom.split(jrandom.split(kcol, ncolors),
+                                       3).unbind(-2)
+    d = dpos_eff.reshape((-1,) + (1,) * (pkey.dim() + 1))
+    return (jrandom.uniform(ksh, (3,)), jrandom.permutation(kperm, ncolors),
+            jrandom.uniform(kpick, (m,)),
+            jrandom.uniform(kdisp, (m, 3), -d, d),
+            torch.log(jrandom.uniform(kacc, (m,), 1e-38, 1.0)))
+
+
+def pick_movers(table, colors, count, start, sorted_ids, u):
+    """One random particle of every active cell of the colours ``colors``
+    (R, ...): (ids (R, ..., M), valid (R, ..., M) where the cell is
+    occupied; an empty cell gives some other particle, never moved), from
+    the uniforms ``u`` (R, ..., M) and the pass's binning."""
+    r = colors.shape[0]
+    cells = table[colors]                                   # (R, ..., M)
+    cnt = count.gather(1, cells.reshape(r, -1)).reshape(cells.shape)
+    st0 = start.gather(1, cells.reshape(r, -1)).reshape(cells.shape)
+    pick = torch.minimum((u * cnt).to(torch.int32),
+                         torch.clamp(cnt - 1, min=0))
+    n = sorted_ids.shape[1]
+    slot = torch.clamp(st0 + pick, 0, n - 1).reshape(r, -1).long()
+    return sorted_ids.gather(1, slot).reshape(cells.shape), cnt > 0
+
+
+def make_cb_pass_fn(kb, cellcfg: cells_ops.CellConfig, style: str = "pair"):
+    """Build ``pass_fn(pot, table, states, nl, aux, dpos_eff, pkey) ->
+    (states, aux)``: ONE checkerboard pass of every replica (each particle
+    trialled at most once). ``table`` is ``cellcfg.active_table`` as an
+    int64 tensor on the states' device, ``dpos_eff`` (R,), ``pkey`` (R, 2).
+    The list must satisfy rc + 2 (maxdisp + sqrt(3) dpos_eff) <= rlist
+    min(s) on entry, so every in-pass trial energy is exact. Returns a new
+    state; the input's tensors are not changed. ``draws``: the pass's
+    ``pass_draws`` made beforehand (then ``pkey`` is not read). With a
+    list ``trace``, the pass appends each colour's (valid, accepted, ln u
+    - weight): a decision's margin."""
+    pops = PO.ops_for_style(style)
+    ncolors = cellcfg.ncolors
+    m = cellcfg.cells_per_color
+    ncell = cellcfg.ncell
+
+    def one_pass(pot, table, states, nl, aux, dpos_eff, pkey, draws=None,
+                 trace=None):
+        if draws is None:
+            draws = pass_draws(pkey, ncolors, m, dpos_eff)
+        shift, order, u, disp, ln_u = draws
+        sorted_ids, start, count = cells_ops.bin_particles(
+            states.pos, states.box, ncell, shift)
+        # the binning is frozen for the pass: every colour's movers at once
+        pids, valid = pick_movers(table, order, count, start, sorted_ids, u)
+        nbeta = -(1.0 / (kb * states.temp))[:, None]
+        box = states.box[:, None, :]
+        pos, pe, vir = states.pos, states.pe, states.virial
+        accs = []
+        for c in range(ncolors):
+            pid, ok = pids[:, c], valid[:, c]
+            pid3 = pid[..., None].expand(-1, -1, 3)
+            old_r = pos.gather(1, pid3)
+            new_r = old_r + disp[:, c]
+            de, dw, payload = pops.delta(pot, pos, states.box, nl, aux,
+                                         pid, new_r)
+            acc = ok & (ln_u[:, c] < nbeta * de)
+            if trace is not None:
+                trace.append((ok, acc, ln_u[:, c] - nbeta * de))
+            delta = torch.where(acc[..., None],
+                                moves.wrap_pos(new_r, box) - old_r, 0.0)
+            # duplicate pids only occur for empty cells (delta == 0): an
+            # add is exact in any order where a set would race
+            pos = pos.scatter_add(1, pid3, delta)
+            aux = pops.apply_accept(aux, pid, acc, payload)
+            # pe and virial in the JAX engine's order: one colour at a time
+            pe = pe + torch.where(acc, de, 0.0).sum(-1)
+            vir = vir + torch.where(acc, dw, 0.0).sum(-1)
+            accs.append(acc)
+        # integer counts: any order is exact
+        nap = states.nap + torch.stack(accs, 1).sum((1, 2),
+                                                    dtype=torch.int32)
+        ntp = states.ntp + valid.sum((1, 2), dtype=torch.int32)
+        return states.replace(pos=pos, pe=pe, virial=vir, nap=nap,
+                              ntp=ntp), aux
+
+    return one_pass
+
+
+def make_cb_tail_fn(kb, p2e, nvol: int = 1, nhmc: int = 0,
+                    nstps: int = 16, mass: float = 1.0,
+                    style: str = "pair"):
+    """Build ``tail(pot, states, nl, aux, kvol, khmc) -> (states, aux)``:
+    the whole-configuration moves ending a sweep (volume trials, then
+    HMC), every replica on its own keys (R, 2). The caller must ensure
+    the list covers the worst volume shrink and the HMC drift budget
+    (see parallel/ensemble.py). Returns a new state."""
+    pops = PO.ops_for_style(style)
+
+    def tail(pot, states, nl, aux, kvol, khmc):
+        backend = nl_backend(pops, nl)
+        st = dataclasses.replace(states)
+        nbeta = -(1.0 / (kb * st.temp))
+        n = st.pos.shape[-2]
+        for v in range(nvol):
+            v2u, ln_u = moves.volume_draws(jrandom.fold_in(kvol, v))
+            acc, _ = moves.volume(pot, p2e, backend, st, nbeta, v2u, ln_u)
+            st.nav = st.nav + acc.to(torch.int32)
+            st.ntv = st.ntv + 1
+        for h in range(nhmc):
+            normals, ln_u = moves.hmc_draws(jrandom.fold_in(khmc, h), n)
+            acc, _ = moves.hmc(pot, kb, backend, st, nbeta, normals, ln_u,
+                               nstps, mass)
+            st.nah = st.nah + acc.to(torch.int32)
+            st.nth = st.nth + 1
+        return st, aux
+
+    return tail
+
+
+def make_cb_sweep_fn(kb, p2e, cellcfg: cells_ops.CellConfig,
+                     npasses: int = 1, nvol: int = 1, nhmc: int = 0,
+                     nstps: int = 16, mass: float = 1.0,
+                     style: str = "pair"):
+    """Build ``sweep(pot, table, states, nl, aux) -> (states, aux, diag)``
+    — npasses passes + the tail as one unit, checking nothing between
+    passes. The production runner (parallel/ensemble.py) drives pass and
+    tail separately with staleness checks and rebuilds; use this form
+    only where the skin covers a whole sweep."""
+    pops = PO.ops_for_style(style)
+    one_pass = make_cb_pass_fn(kb, cellcfg, style)
+    tail = make_cb_tail_fn(kb, p2e, nvol, nhmc, nstps, mass, style)
+
+    def sweep(pot, table, states, nl, aux):
+        key, kpass, kvol, khmc = jrandom.split(states.key, 4).unbind(-2)
+        states = states.replace(key=key)
+        margin = cb_dpos_margin(pops, pot, cellcfg, states.box)
+        dpos_eff = torch.minimum(states.dpos, 0.5 * margin)
+        diag = torch.where(margin <= 0.0, DIAG_CB_INVALID, 0).to(torch.int32)
+        for pk in jrandom.split(kpass, npasses).unbind(-2):
+            states, aux = one_pass(pot, table, states, nl, aux, dpos_eff, pk)
+        states, aux = tail(pot, states, nl, aux, kvol, khmc)
+        diag = diag | torch.where(nl.overflow, DIAG_NL_OVERFLOW,
+                                  0).to(torch.int32)
+        return states.replace(sweep=states.sweep + 1), aux, diag
+
+    return sweep

@@ -21,6 +21,11 @@ position attempts at once (on the card, one launch of kernel B5).
 The appliers leave the try/accept counters to the caller and return the
 acceptance (a 0-dim bool tensor on the state's device) with the log of
 the acceptance weight it was decided on (accept iff ln u < weight).
+``volume`` and ``hmc`` also take an ensemble, every field with a leading
+replica axis R (the gather engine's tail, ``sampler/checkerboard.py``):
+each replica moves on its own draws and the acceptances are (R,). On one
+chain (no replica axis) they run the serial engine's operations, sums
+included, so its chains stay bit for bit.
 
 Where the arithmetic is not the JAX package's: the volume move's cube
 root is computed in f64 and rounded to f32 (torch has no f32 cbrt);
@@ -35,7 +40,7 @@ a decision differs only where its margin is at that rounding.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -48,11 +53,12 @@ class EnergyBackend:
     """total(pot,pos,box)->(pe,vir); delta_move(pot,pos,box,i,ri)->(dE,dW);
     forces(pot,pos,box)->(N,3); position_run(pot,pos,box,ids,disp,ln_u,
     nbeta,pe,virial)->(acc,weight), a run of position attempts applied in
-    order (``ops/lj_delta.py::position_run``)."""
+    order (``ops/lj_delta.py::position_run``; None where a backend has
+    none)."""
     total: Callable
     delta_move: Callable
     forces: Callable
-    position_run: Callable
+    position_run: Optional[Callable] = None
 
 
 def brute_backend(plain: bool = False) -> EnergyBackend:
@@ -86,6 +92,22 @@ def wrap_pos(pos, box):
 def cbrt(x):
     """f32 cube root of positive x, computed in f64 and rounded once."""
     return torch.pow(x.double(), 1.0 / 3.0).float()
+
+
+def _per_atom(x, pos):
+    """A per-chain value (0-dim, or (R,) for an ensemble) shaped to
+    broadcast against positions (N, 3) / (R, N, 3)."""
+    return x[..., None, None] if pos.dim() == 3 else x
+
+
+def _per_box(x, box):
+    return x[..., None] if box.dim() == 2 else x
+
+
+def _sq_sum(v):
+    """Sum of v^2 over each chain's (N, 3)."""
+    return torch.sum(v * v) if v.dim() == 2 else torch.sum(v * v,
+                                                           dim=(-2, -1))
 
 
 def log_u(k):
@@ -153,21 +175,21 @@ def position_run(pot, backend, state, nbeta, ids, disp, ln_u):
 def volume(pot, p2e, backend, state, nbeta, v2u, ln_u):
     """Isotropic volume trial V' = V + dvol (2u - 1), box and coordinates
     rescaled; ``v2u`` = 2u - 1."""
-    n = state.pos.shape[0]
+    n = state.pos.shape[-2]
     vol = box_volume(state.box)
     dv = state.dvol * v2u
     vol_new = vol + dv
     valid = vol_new > 0.0
     ratio = vol_new / vol
     s = torch.where(valid, cbrt(ratio), 1.0)
-    pos_new = state.pos * s
-    box_new = state.box * s
+    pos_new = state.pos * _per_atom(s, state.pos)
+    box_new = state.box * _per_box(s, state.box)
     pe_new, vir_new = backend.total(pot, pos_new, box_new)
     ln_acc = (nbeta * ((pe_new - state.pe) + state.press * p2e * dv)
               + n * torch.log(torch.where(valid, ratio, 1.0)))
     acc = valid & (ln_u < ln_acc)
-    state.pos = torch.where(acc, pos_new, state.pos)
-    state.box = torch.where(acc, box_new, state.box)
+    state.pos = torch.where(_per_atom(acc, state.pos), pos_new, state.pos)
+    state.box = torch.where(_per_box(acc, state.box), box_new, state.box)
     state.pe = torch.where(acc, pe_new, state.pe)
     state.virial = torch.where(acc, vir_new, state.virial)
     return acc, ln_acc
@@ -175,15 +197,15 @@ def volume(pot, p2e, backend, state, nbeta, v2u, ln_u):
 
 def hmc(pot, kb, backend, state, nbeta, normals, ln_u, nstps: int,
         mass: float):
-    """Hybrid MC: Maxwell-Boltzmann velocities from ``normals`` (N, 3),
-    then ``nstps`` velocity-Verlet steps (the reference's LAMMPS
+    """Hybrid MC: Maxwell-Boltzmann velocities from ``normals`` (N, 3) or
+    (R, N, 3), then ``nstps`` velocity-Verlet steps (the reference's LAMMPS
     ``velocity create`` + ``run``)."""
-    sigma_v = torch.sqrt(kb * state.temp / mass)
-    vel = sigma_v * normals
-    ke0 = 0.5 * mass * torch.sum(vel * vel)
-    dt = state.dt
-    half = 0.5 * dt / mass
     pos = state.pos
+    sigma_v = torch.sqrt(kb * state.temp / mass)
+    vel = _per_atom(sigma_v, pos) * normals
+    ke0 = 0.5 * mass * _sq_sum(vel)
+    dt = _per_atom(state.dt, pos)
+    half = 0.5 * dt / mass
     f = backend.forces(pot, pos, state.box)
     for _ in range(nstps):
         vel_half = vel + half * f
@@ -191,11 +213,13 @@ def hmc(pot, kb, backend, state, nbeta, normals, ln_u, nstps: int,
         f = backend.forces(pot, pos, state.box)
         vel = vel_half + half * f
     pe_new, vir_new = backend.total(pot, pos, state.box)
-    ke1 = 0.5 * mass * torch.sum(vel * vel)
+    ke1 = 0.5 * mass * _sq_sum(vel)
     dh = (pe_new - state.pe) + (ke1 - ke0)
     weight = nbeta * dh
     acc = ln_u < weight
-    state.pos = torch.where(acc, wrap_pos(pos, state.box), state.pos)
+    box = state.box[..., None, :] if pos.dim() == 3 else state.box
+    state.pos = torch.where(_per_atom(acc, pos), wrap_pos(pos, box),
+                            state.pos)
     state.pe = torch.where(acc, pe_new, state.pe)
     state.virial = torch.where(acc, vir_new, state.virial)
     return acc, weight

@@ -8,9 +8,11 @@ Where the JAX engine donates a buffer, the port updates in place or
 replaces the tensor.
 
 ``key`` is the chain's ``jax.random`` key as two uint32 words held in
-int64 (``ops/jrandom.py``), (2,) for a serial chain, on the host: the
-serial engine derives every draw of a sweep from it before the sweep's
-moves. The cellmc path leaves it ``None``: its host draws come from one
+int64 (``ops/jrandom.py``): (2,) for a serial chain, on the host, where
+the serial engine derives every draw of a sweep from it before the
+sweep's moves; (R, 2) for a gather ensemble (``ensemble_init`` with a
+``seed``), on the ensemble's device, where the checkerboard passes draw.
+The cellmc path leaves it ``None``: its host draws come from one
 ``torch.Generator`` per run (sampler/cellmc.py).
 
 CONTRACT (as in the JAX package): ``pe`` and ``virial`` are exact at
@@ -51,7 +53,7 @@ class MCState:
     nah: torch.Tensor       # (R,) i32 accepted HMC moves
     nth: torch.Tensor       # (R,) i32 tried HMC moves
     sweep: torch.Tensor     # (R,) i32 sweeps completed
-    key: Optional[torch.Tensor] = None  # (2,) jax.random key words (serial)
+    key: Optional[torch.Tensor] = None  # (2,) / (R, 2) jax.random key words
 
     def replace(self, **kw) -> "MCState":
         return dataclasses.replace(self, **kw)
@@ -100,11 +102,13 @@ def init_state(pot, pos, box, key, temp, press, dpos0, dvol_frac0, dt0,
 
 
 def ensemble_init(pos, box, temps, presses, dpos0, dvol_frac0, dt0,
-                  device="cpu") -> MCState:
+                  device="cpu", seed=None) -> MCState:
     """A replica ensemble on ``device``: the same lattice for every
     (temp, press) pair of the flat (R,) grids. pe and virial start at 0;
-    the cellmc engine refreshes them from the slabs (refresh_energies).
-    ``dvol_frac0`` is the initial max volume step as a fraction of V0."""
+    each engine refreshes them (cellmc from its slabs, gather from its
+    neighbour lists). ``dvol_frac0`` is the initial max volume step as a
+    fraction of V0. With a ``seed``, replica r gets the JAX package's key
+    ``fold_in(key(seed), r)`` on ``device``; without one, no key."""
     temps = torch.as_tensor(temps, dtype=torch.float32,
                             device=device).clone()
     presses = torch.as_tensor(presses, dtype=torch.float32,
@@ -128,7 +132,9 @@ def ensemble_init(pos, box, temps, presses, dpos0, dvol_frac0, dt0,
         dpos=full(dpos0),
         dvol=full(dvol_frac0) * vol0, dt=full(dt0),
         nap=zeros_i(), ntp=zeros_i(), nav=zeros_i(), ntv=zeros_i(),
-        nah=zeros_i(), nth=zeros_i(), sweep=zeros_i())
+        nah=zeros_i(), nth=zeros_i(), sweep=zeros_i(),
+        key=None if seed is None else jrandom.fold_in(
+            jrandom.key(seed), torch.arange(r)).to(device))
 
 
 def state_from_numpy(arrays: dict, device="cpu"):

@@ -8,15 +8,19 @@ tempering weight
 
     ln A = (beta_i - beta_j)(E_i - E_j) + p2e (beta_i P_i - beta_j P_j)(V_i - V_j).
 
-Pairing alternates even/odd along T, then along P. The uniforms ``u`` are
-an argument, drawn by the caller (the run's ``torch.Generator``); the
-tests feed JAX's own uniforms to hold the port against the reference.
+Pairing alternates even/odd along T, then along P. ``exchange_event``
+takes the uniforms ``u`` as an argument, drawn by the caller (the cellmc
+engine's ``torch.Generator``; the tests feed JAX's own uniforms).
+``exchange_event_keyed`` draws them from a ``jax.random`` key as the JAX
+``propose_swaps`` does, ``uniform(key, grid shape, 1e-38, 1)``, so its
+swaps and acceptances equal the JAX package's (the gather engine).
 """
 
 from __future__ import annotations
 
 import torch
 
+from neuralmelting_tpu_torch.ops import jrandom
 from neuralmelting_tpu_torch.sampler.state import box_volume
 
 SLOT_FIELDS = ("dpos", "dvol", "dt", "nap", "ntp", "nav", "ntv", "nah",
@@ -107,9 +111,25 @@ def exchange_event(states, slot_of, u, event_idx: int, npress, ntemp,
     perm = torch.argsort(slot_of)
     e_slot = states.pe[perm]
     v_slot = box_volume(states.box)[perm]
-    branch = event_idx % (4 if npress > 1 else 2)
-    axis, phase = ((1, 0), (1, 1), (0, 0), (0, 1))[branch]
+    axis, phase = event_axis_phase(event_idx, npress)
     sigma, n_acc = propose_swaps(e_slot, v_slot, t_grid, p_grid, npress,
                                  ntemp, axis, phase, u, kb, p2e)
     states, slot_of = apply_exchange(states, slot_of, sigma, t_grid, p_grid)
     return states, slot_of, n_acc
+
+
+def event_axis_phase(event_idx: int, npress: int):
+    """(axis, phase) of exchange event ``event_idx``: T0, T1, P0, P1."""
+    branch = event_idx % (4 if npress > 1 else 2)
+    return ((1, 0), (1, 1), (0, 0), (0, 1))[branch]
+
+
+def exchange_event_keyed(states, slot_of, key, event_idx: int, npress,
+                         ntemp, t_grid, p_grid, kb, p2e):
+    """``exchange_event`` with its uniforms drawn from ``key`` (2,) on the
+    states' device, as the JAX ``propose_swaps`` draws them."""
+    axis, _ = event_axis_phase(event_idx, npress)
+    shape = (npress, ntemp) if axis == 1 else (ntemp, npress)
+    u = jrandom.uniform(key, shape, 1e-38, 1.0)
+    return exchange_event(states, slot_of, u, event_idx, npress, ntemp,
+                          t_grid, p_grid, kb, p2e)

@@ -80,7 +80,7 @@ def test_configs_are_the_jax_benches():
 @pytest.mark.parametrize("adapt", [False, True])
 def test_adapt_off_keeps_counters_and_steps(adapt):
     cfg = tiny()["lj"]
-    s = runner.setup_run(cfg, device="cpu")
+    s = runner.setup_run(cfg, engine="cellmc", device="cpu")
     run = SC.make_cellmc_run_fn(
         s.us.kb, s.us.p2e, s.geom, mod=2, nrecords=2,
         ncyc=SC.default_ncyc(s.geom), nvol=1, exchange=False, adapt=adapt)

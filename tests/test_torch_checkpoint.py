@@ -72,7 +72,7 @@ def table(tmp_path_factory):
 
 def _setup(cfg, table):
     return runner.setup_run(cfg, setfl=table if cfg.element == "AL"
-                            else None, device="cpu")
+                            else None, engine="cellmc", device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +118,8 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
         np.testing.assert_array_equal(t.numpy(),
                                       np.asarray(getattr(states, f)),
                                       err_msg=f)
-    assert got.key is None
+    np.testing.assert_array_equal(got.key.numpy(),
+                                  np.asarray(jax.random.key_data(states.key)))
     assert slot_of.tolist() == [1, 0]
     assert json.loads(cfg_json)["x"] == 1
     np.testing.assert_array_equal(extra["note"], np.arange(3))
@@ -146,7 +147,7 @@ def _resume_pe(tmp_path, capsys, strip):
     out = str(tmp_path / "o1")
     argv = ["-n", "r", "-e", "LJ", "-ss", "4", "-pn", "1", "-tn", "4",
             "-tr", "0.5", "1.4", "-sn", "4", "-sm", "3", "-sd", "9",
-            "--device", "cpu"]
+            "--device", "cpu", "--engine", "cellmc"]
     remcmc.main(argv + ["-o", out])
     ck = os.path.join(out, "r.lj.ckpt.npz")
     if strip:
@@ -209,5 +210,6 @@ def test_restore_setup_raises_without_cuda(sampled):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
-        remcmc.main(["-ss", "4", "-pn", "1", "-tn", "2", "--restart", path,
+        remcmc.main(["-ss", "4", "-pn", "1", "-tn", "2", "--engine",
+                     "cellmc", "--restart", path,
                      "-o", path + ".out"])

@@ -17,8 +17,11 @@
   rdf npz give T_m within one grid spacing (as test_slice_tm_matches_jax:
   the classifiers start from different initial weights); ``post
   --no-plot`` prints one row a pressure;
-- ``--engine gather|dense`` and ``--coordinator`` raise, naming their
-  ROADMAP items; without CUDA the stages' default device raises.
+- ``--engine dense``, EAM on ``--engine gather`` and ``--coordinator``
+  raise, naming their ROADMAP items; without CUDA the stages' default
+  device raises. The staged runs name ``--engine cellmc`` (the default
+  is gather, as in the JAX package; tests/test_torch_gather_runner.py
+  runs it).
 """
 
 import glob
@@ -158,7 +161,8 @@ def staged(tmp_path_factory):
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        remcmc.main(MINI + ["-o", out, "--device", "cpu"])
+        remcmc.main(MINI + ["-o", out, "--device", "cpu", "--engine",
+                            "cellmc"])
     return out, json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
@@ -287,9 +291,11 @@ def test_neural_and_post(features, capsys):
 
 @pytest.mark.parametrize("engine,item", [("gather", "A13"), ("dense", "A14")])
 def test_remcmc_unported_engines_raise(tmp_path, engine, item):
+    # gather runs LJ; what it lacks is EAM over neighbour lists
+    element = ["-e", "AL"] if engine == "gather" else []
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        remcmc.main(MINI + ["-o", str(tmp_path), "--device", "cpu",
-                            "--engine", engine])
+        remcmc.main(MINI + element + ["-o", str(tmp_path), "--device", "cpu",
+                                      "--engine", engine])
 
 
 @pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
@@ -304,7 +310,7 @@ def test_stages_default_to_the_card(tmp_path, features):
         pytest.skip("a GPU is present: the default device is usable")
     port_rdf, _ = features
     with pytest.raises(RuntimeError, match="CUDA"):
-        remcmc.main(MINI + ["-o", str(tmp_path)])
+        remcmc.main(MINI + ["-o", str(tmp_path), "--engine", "cellmc"])
     with pytest.raises(RuntimeError, match="CUDA"):
         rdf.main(["-i", port_rdf.replace(".port.rdf.npz", ".parsed.npz"),
                   "-o", str(tmp_path / "x.npz")])

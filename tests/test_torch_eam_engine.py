@@ -53,7 +53,8 @@ def _fresh(setup, slabs, states):
 
 
 def test_setup_run_builds_the_eam_ensemble(table):
-    setup = runner.setup_run(_cfg(), setfl=table, device="cpu")
+    setup = runner.setup_run(_cfg(), setfl=table, engine="cellmc",
+                             device="cpu")
     g = setup.geom
     assert setup.style == "eam" and isinstance(setup.pot, TEC.EAMCheb)
     assert (g.stride, g.nsub, g.ncell) == (3, 1, (3, 3, 3))
@@ -78,7 +79,8 @@ def test_setup_run_builds_the_eam_ensemble(table):
 @pytest.mark.parametrize("exchange", [False, True])
 def test_eam_chunk_keeps_density_and_records_exact(table, monkeypatch,
                                                    exchange):
-    setup = runner.setup_run(_cfg(), setfl=table, device="cpu")
+    setup = runner.setup_run(_cfg(), setfl=table, engine="cellmc",
+                             device="cpu")
     errs = []
     sweep = CE.sweep
 

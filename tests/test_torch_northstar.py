@@ -87,7 +87,7 @@ def test_featurize_chunk_matches_jax():
 
 def test_nominal_attempts_and_first_chunk_excess_match_jax_formulas():
     cfg = tiny_cfg()
-    setup = TR.setup_run(cfg, device="cpu")
+    setup = TR.setup_run(cfg, engine="cellmc", device="cpu")
     setup = dataclasses.replace(setup, states=setup.states.replace(
         sweep=torch.full_like(setup.states.sweep, 24)))
     box0 = setup.states.box[0].numpy()

@@ -46,7 +46,7 @@ cfg = RunConfig(name="nojax", element="LJ", ncells=(4, 4, 4), npress=1,
                 ntemp=2, press=(1.0,), temp=(0.6, 1.4), nsmpl=2, mod=2,
                 ncut=0, seed=1)
 res = melting_pipeline(cfg, nbins=16, model="mlp", epochs=3, band=1,
-                       device="cpu")
+                       engine="cellmc", device="cpu")
 assert res.diag == 0 and res.probs.shape == (1, 2), res
 import os, tempfile
 from neuralmelting_tpu_torch import runner
@@ -56,7 +56,7 @@ eam_gen.write_setfl(table, rc=3.8)
 al = RunConfig(name="nojax", element="AL", ncells=(4, 4, 4), npress=1,
                ntemp=1, press=(1.0,), temp=(900.0,), nsmpl=1, mod=1,
                ncut=0, seed=1)
-setup = runner.setup_run(al, setfl=table, device="cpu")
+setup = runner.setup_run(al, setfl=table, engine="cellmc", device="cpu")
 setup, recs, frames, hist, xacc, diag = runner.run_sampling(setup)
 assert diag == 0 and setup.style == "eam", diag
 from neuralmelting_tpu_torch import golden, probe
@@ -81,19 +81,22 @@ def test_port_imports_and_runs_without_jax():
 
 def test_port_rejects_unported_engines_and_missing_gpu():
     """Unported engines raise naming their ROADMAP item, for LJ and EAM
-    alike; the entry points run on the card unless asked for the CPU, so
-    without a GPU their defaults raise."""
+    alike, and so does EAM on the gather engine; the entry points run on
+    the card unless asked for the CPU, so without a GPU their defaults
+    raise."""
     cfg = RunConfig(ncells=(4, 4, 4), npress=1, ntemp=2)
     al = RunConfig(element="AL", ncells=(4, 4, 4), npress=1, ntemp=2)
     for c in (cfg, al):
-        for engine in ("gather", "dense", "serial"):
+        for engine in ("dense", "serial"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 TR.setup_run(c, engine=engine)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13 item 3"):
+        TR.setup_run(al, engine="gather")
     import torch
     if not torch.cuda.is_available():
-        for c in (cfg, al):
+        for c, kw in ((cfg, {}), (al, {"engine": "cellmc"})):
             with pytest.raises(RuntimeError, match="CUDA"):
-                TR.setup_run(c)
+                TR.setup_run(c, **kw)
         with pytest.raises(RuntimeError, match="CUDA"):
             TP.melting_pipeline(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -175,7 +178,7 @@ def test_cooling_leg_reuses_the_heating_classifier(both):
                     mod=2, ncut=0, seed=3)
     with pytest.raises(ValueError, match="classify_with"):
         TP.melting_pipeline(cfg, init="liquid", device="cpu")
-    res = TP.melting_pipeline(cfg, nbins=48, init="liquid",
+    res = TP.melting_pipeline(cfg, nbins=48, init="liquid", engine="cellmc",
                               classify_with=rt, device="cpu")
     assert res.diag == 0 and res.losses.shape == (0,)
     assert res.classifier is rt.classifier
