@@ -56,7 +56,12 @@ Phases, in order (any failed check exits non-zero):
                    setup_run(engine="gather"): ms a sweep, attempted
                    moves/s, rebuilds, host syncs and graph replays a sweep,
                    K, peak memory; one sweep and its record under
-                   torch.profiler: the device-busy share;
+                   torch.profiler: the device-busy share. It runs last:
+                   once a process has profiled CUDA-graph replays,
+                   torch.profiler loses kernel records in its later
+                   sessions (python -m neuralmelting_tpu_torch.profiler_drops),
+                   and the times of B5, P1 and golden's sweep come from
+                   such sessions;
   EAM path (kernels B3 sweep, B4 total; the rc=3.8 synthetic Al table,
   written to a temp directory at run time):
   6. eam-small   — B4 and B3 against their plain versions at 4x4x4 fcc Al
@@ -206,7 +211,7 @@ package.
 from __future__ import annotations
 
 import contextlib
-import functools
+import dataclasses
 import glob
 import io
 import json
@@ -844,19 +849,22 @@ def f32_ulps(a, b):
 
 
 def gather_chunk(cfg, device, graphs=True):
-    """setup_run + one run_sampling chunk of the gather engine; ``graphs``
-    False runs its stages eagerly on the card."""
-    make = ENS.make_ensemble_run_fn
-    runner._GATHER_RUNS.clear()
-    if not graphs:
-        ENS.make_ensemble_run_fn = functools.partial(make, graphs=False)
-    try:
-        setup = runner.setup_run(cfg, device=device)
-        out = runner.run_sampling(setup, write_files=False)
-    finally:
-        ENS.make_ensemble_run_fn = make
-        runner._GATHER_RUNS.clear()
-    return out
+    """setup_run + one chunk of the gather engine: (setup, recs, frames,
+    hist, xacc, diag) as run_sampling returns them. ``graphs`` False runs
+    the run function of the same parameters with its stages eager on the
+    card."""
+    setup = runner.setup_run(cfg, device=device)
+    if graphs:
+        return runner.run_sampling(setup, write_files=False)
+    run = ENS.make_ensemble_run_fn(
+        setup.us.kb, setup.us.p2e, setup.cellcfg,
+        **runner.gather_run_kwargs(setup, cfg.nsmpl, True), graphs=False)
+    (states, _, _, _, recs, frames, hist, xacc, diag, _) = run(
+        setup.states, setup.nls, setup.aux, setup.slot_of,
+        J.key(cfg.seed + 1).to(setup.device), setup.pot, setup.table,
+        setup.t_grid, setup.p_grid)
+    return (dataclasses.replace(setup, states=states), recs, frames, hist,
+            xacc, int(diag))
 
 
 def hold_chunk(a, b, tag):
@@ -2430,7 +2438,6 @@ def main():
               ("gather-small", lambda: phase_gather_small(name)),
               ("gather-physics", lambda: phase_gather_physics(name)),
               ("gather-hmc", lambda: phase_gather_hmc(name)),
-              ("gather-full", lambda: phase_gather_full(name)),
               ("eam-small", lambda: phase_eam_small(table)),
               ("eam-full", lambda: phase_eam_full(name, table)),
               ("eam-main", lambda: phase_eam_main(name, table)),
@@ -2445,7 +2452,8 @@ def main():
               ("serial-run", lambda: phase_serial_run(name)),
               ("golden", lambda: phase_golden(name)),
               ("golden-hmc", lambda: phase_golden_hmc(name)),
-              ("probe", lambda: phase_probe(name)))
+              ("probe", lambda: phase_probe(name)),
+              ("gather-full", lambda: phase_gather_full(name)))
     for ph, fn in phases:
         t = time.perf_counter()
         fn()

@@ -1,16 +1,22 @@
 """neuralmelting_tpu_torch — the PyTorch/CUDA port of neuralmelting_tpu.
 
-The cellmc production paths of the JAX package (replica-exchange NPT cell
-Monte Carlo -> g(r)/S(q) -> extreme-T phase classifier -> T_m fit), LJ and
-EAM, in PyTorch, for one NVIDIA Hopper GPU. Module names follow the JAX
-package, so each counterpart is easy to find:
+The production paths of the JAX package (replica-exchange NPT Monte Carlo
+-> g(r)/S(q) -> extreme-T phase classifier -> T_m fit), LJ and EAM, in
+PyTorch, for one NVIDIA Hopper GPU. Module names follow the JAX package,
+so each counterpart is easy to find:
 
-* ``pipeline.melting_pipeline`` — the entry point (engine="cellmc").
+* ``pipeline.melting_pipeline`` — the entry point; its default engine is
+  "gather", as in the JAX package, and "cellmc" is the other.
 * ``runner`` — setup, chunked sampling, geometry maintenance.
+* ``parallel/ensemble.py``, ``sampler/checkerboard.py`` and
+  ``ops/neighbors.py`` — the gather engine (LJ): checkerboard passes over
+  neighbour lists in torch operations, replayed from CUDA graphs on the
+  card; it launches no hand-written kernel.
 * ``sampler/`` — state, chunk engines, adaptation, records, tempering.
 * ``ops/cellmc.py`` (LJ) and ``ops/cellmc_eam.py`` (EAM) — the
-  hand-written CUDA kernels (``csrc/``) that carry every trial move and
-  energy pass, each beside its plain PyTorch version.
+  hand-written CUDA kernels (``csrc/``) of the cellmc engine, which carry
+  its every trial move and energy pass, each beside its plain PyTorch
+  version.
 * ``models/`` — lattice, LJ, the setfl EAM tables and their Chebyshev
   refit; ``config``, ``units`` — run configuration and unit systems.
 * ``features/``, ``neural/`` — structure features and the classifier.

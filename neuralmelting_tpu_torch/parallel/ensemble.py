@@ -21,12 +21,13 @@ again, and a violation sets ``DIAG_NL_STALE``.
 A sweep is four kinds of stage, each a function of tensors only: the
 head (the replica keys split, dpos_eff, every pass's draws, the first
 rebuild decision), the list build, a pass (which ends with the next two
-rebuild decisions) and the tail (volume trials, HMC, the diag bits). On the card each stage
-is replayed from a CUDA graph captured from the same function at its
-first call (one graph per stage and input shape): the same kernels in
-the same order, so the same bits as eager execution (chip_smoke holds
-them to it), without a host launch for each of the ~60 small operations
-of a colour substep. On the CPU the stages run eagerly.
+rebuild decisions) and the tail (volume trials, HMC, the diag bits). On
+the card each stage is replayed from a CUDA graph captured from the same
+function at its first call (one graph per stage and input shape): the
+same kernels in the same order, so the same bits as eager execution
+(chip_smoke holds them to it), without a host launch for each of the ~60
+small operations of a colour substep. The graphs live as long as the run
+function. On the CPU the stages run eagerly.
 """
 
 from __future__ import annotations
@@ -97,21 +98,15 @@ class _Graphed:
         return tuple(o.clone() for o in out)
 
     def _capture(self, args):
-        # capture_begin/end directly: torch.cuda.graph() would also
-        # synchronise the device and empty the allocator's cache, which
-        # other threads' work on their own streams may not allow
         static = [a.clone() for a in args]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self.fn(*[a.clone() for a in args])
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = self.fn(*static)
-            finally:
-                graph.capture_end()
         torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.fn(*static)
         return graph, static, out, [None] * len(args)
 
 

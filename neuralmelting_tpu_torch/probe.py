@@ -38,6 +38,7 @@ from __future__ import annotations
 import math
 import re
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -216,32 +217,34 @@ def time_ms(fn, min_ms=10.0):
         n = max(2 * n, int(math.ceil(n * 1.2 * min_ms / max(total, 1e-3))))
 
 
-def device_ms(fn, calls, match, tries=3):
+def device_ms(fn, calls, match):
     """Mean device time (ms) of the kernels whose name contains ``match``
     over ``calls`` calls of ``fn``, from torch.profiler: the kernel's own
-    time, without the host's time to issue it. A profiler session that
-    records none of them (seen once on the card, late in a long process,
-    where the same session alone recorded them) is run again, up to
-    ``tries`` sessions."""
+    time, without the host's time to issue it. The mean is over the
+    launches the session recorded. torch.profiler drops a record now and
+    then, and many more once the process has profiled CUDA-graph
+    replays (``profiler_drops``): a session that recorded fewer launches
+    than calls is reported on stderr."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for ev in prof.key_averages():
-            if match in ev.key and ev.device_type == \
-                    torch.autograd.DeviceType.CUDA:
-                t = getattr(ev, "self_device_time_total", None)
-                total += ev.self_cuda_time_total if t is None else t
-                count += ev.count
-        if count > 0 and total > 0:
-            return total / count / 1e3
-    raise RuntimeError(f"the profiler saw no device time of {match!r} in "
-                       f"{tries} sessions")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if match in ev.key and ev.device_type == \
+                torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if t is None else t
+            count += ev.count
+    if count < calls:
+        print(f"device_ms: the profiler recorded {count} launches of "
+              f"{match!r} in {calls} calls", file=sys.stderr, flush=True)
+    if count == 0 or total <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {match!r}")
+    return total / count / 1e3
 
 
 def issue_ceiling(variant):

@@ -95,6 +95,10 @@ class RunSetup:
     shift: object = None       # (3,) fractional grid shift
     cell_tabs: object = None   # (3, C*K) int32 row tables
     moves_tried: object = None  # () int64: attempted moves, all chunks
+    # gather run functions by their parameters, shared by every setup
+    # replaced from this one: each chunk of a run reuses the CUDA graphs
+    # that its earlier chunks captured, and they go with the setup
+    run_fns: dict = dataclasses.field(default_factory=dict)
 
 
 def resolve_device(device) -> torch.device:
@@ -449,15 +453,14 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
 
 
 _GATHER_DIAG = {1: "NL_OVERFLOW", 2: "CB_INVALID", 8: "NL_STALE"}
-# gather run functions by their parameters and the current CUDA stream: a
-# chunk reuses the CUDA graphs that the previous chunks of its
-# configuration captured on its stream
-_GATHER_RUNS = {}
 
 
-def _gather_run_fn(setup: RunSetup, nrecords: int, write_traj: bool):
+def gather_run_kwargs(setup: RunSetup, nrecords: int,
+                      write_traj: bool) -> dict:
+    """The keyword arguments of ``parallel.ensemble.make_ensemble_run_fn``
+    (after kb, p2e and the cell config) for a chunk of ``setup``."""
     cfg = setup.cfg
-    kw = dict(
+    return dict(
         skin=cfg.skin, capacity=setup.cap, mod=cfg.mod, nrecords=nrecords,
         nvol=nvol_per_sweep(cfg, setup.natoms),
         nhmc=1 if cfg.phmc > 0 else 0, nstps=cfg.nstps, mass=setup.mass,
@@ -466,14 +469,16 @@ def _gather_run_fn(setup: RunSetup, nrecords: int, write_traj: bool):
                  cfg.acc_target_hmc),
         natoms=setup.natoms, exchange=True, npress=len(setup.press),
         ntemp=len(setup.temp), style=setup.style, write_traj=write_traj)
-    stream = (torch.cuda.current_stream(setup.device).stream_id
-              if setup.device.type == "cuda" else None)
-    key = (str(setup.device), stream, setup.pot, setup.us.kb, setup.us.p2e,
-           setup.cellcfg.ncell, setup.cellcfg.stride) + tuple(kw.items())
-    if key not in _GATHER_RUNS:
-        _GATHER_RUNS[key] = ENS.make_ensemble_run_fn(
+
+
+def _gather_run_fn(setup: RunSetup, nrecords: int, write_traj: bool):
+    kw = gather_run_kwargs(setup, nrecords, write_traj)
+    key = (setup.pot, setup.us.kb, setup.us.p2e, setup.cellcfg.ncell,
+           setup.cellcfg.stride) + tuple(kw.items())
+    if key not in setup.run_fns:
+        setup.run_fns[key] = ENS.make_ensemble_run_fn(
             setup.us.kb, setup.us.p2e, setup.cellcfg, **kw)
-    return _GATHER_RUNS[key]
+    return setup.run_fns[key]
 
 
 def _run_gather(setup: RunSetup, nrecords: int, write_traj: bool):

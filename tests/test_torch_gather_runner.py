@@ -3,7 +3,7 @@
 - ``runner.setup_run`` runs gather by default (as the JAX runner does);
   a chunk checkpointed, then a second chunk, equals bit for bit the same
   second chunk run from ``restore_setup`` on a fresh setup (states, keys,
-  records, frames, hist, xacc);
+  records, frames, hist, xacc); the run function stays with the setup;
 - the JAX package's ``io.checkpoint.load`` reads that checkpoint with the
   replicas' live keys; a JAX gather checkpoint (no list extras) resumes
   in the port as the JAX runner resumes it: the next chunk's hist and
@@ -16,6 +16,7 @@
   with ``--restart``; without CUDA the default device raises.
 """
 
+import dataclasses
 import json
 import os
 
@@ -75,6 +76,18 @@ def test_exact_resume(chunked):
     b = runner.run_sampling(runner.restore_setup(
         runner.setup_run(CFG, device="cpu"), path), write_files=False)
     _same_chunk(a, b)
+
+
+
+def test_run_functions_go_with_the_setup(chunked):
+    """A chunk's run function (and on the card its CUDA graphs) lives on
+    the setup: the next chunk and every setup replaced from it reuse it,
+    and a new setup starts with none."""
+    s, _ = chunked
+    fn, = s.run_fns.values()
+    assert runner._gather_run_fn(s, CFG.nsmpl, True) is fn
+    assert dataclasses.replace(s, slot_of=s.slot_of).run_fns is s.run_fns
+    assert runner.setup_run(CFG, device="cpu").run_fns == {}
 
 
 def test_jax_reads_the_live_keys(chunked):
