@@ -31,14 +31,17 @@ Phases, in order (any failed check exits non-zero):
                    tests/make_lj_validation.py), with the smallest steady
                    bias the gate catches; seed 7's T_m printed;
   The gather engine (the JAX package's default; no TPU kernel: its stages
-  run as torch operations replayed from CUDA graphs):
+  run as torch operations replayed from CUDA graphs, a pass's colour
+  substeps compiled by torch.compile at their first call with a shape):
   5a. gather-small — the 108-atom, 2x2-grid chunk of
                    tests/test_torch_gather_engine.py on the card against
                    the port on the CPU from the same inputs: a pass's
                    shift, colour order, picks and displacements equal bit
                    for bit (ln u and HMC normals: ulps printed); one pass's
                    decisions equal but where a margin is below G_MARGIN
-                   (any printed with its margin); the chunk's hist, xacc
+                   (any printed with its margin), and the same against
+                   that pass with eager substeps on the card (positions
+                   and pe within the tests' limits); the chunk's hist, xacc
                    and decisions equal, pe, virial, vol and frames within
                    the tests' limits; the chunk through CUDA graphs equal
                    to it run eagerly on the card, bit for bit;
@@ -82,6 +85,28 @@ Phases, in order (any failed check exits non-zero):
   8. eam-main    — melting_pipeline(element="AL", engine="cellmc") on the
                    default device at that configuration with a short
                    schedule; B3/B4 counters zeroed before and read after;
+  EAM on the gather engine (the JAX package's default for EAM too; no TPU
+  kernel: the gather stages replayed from CUDA graphs, with the setfl
+  splines on the card and a density cache):
+  8-1. eam-gather-small — 256 Al atoms (cells (2, 2, 2): stride 2 at
+                   2 rc), a 2x2 grid, on the card against the port on the
+                   CPU from the same state: a pass's draws bit for bit
+                   (ln u and HMC normals: ulps printed); one pass's and
+                   one tail's (a volume trial and an HMC move) decisions
+                   equal but where a margin is below G_MARGIN, pe and the
+                   density cache within the gather tests' limits (the
+                   pass also against itself with eager colour substeps
+                   on the card), the tail's cache equal to rho_sums of
+                   its configuration;
+                   a chunk of 2 x 2 sweeps through CUDA graphs equal to it
+                   run eagerly (the cache too) and, against the CPU, hist,
+                   xacc and decisions equal, energies, frames and the
+                   cache within those limits;
+  8-2. eam-gather-hmc — config 3's size (256 atoms, 10 temperatures), an
+                   HMC move of 8 leapfrog steps a sweep, 2 x 4 sweeps:
+                   diag 0, HMC moves accepted, pe against a fresh list's
+                   total (rtol 1e-5) and the forces against autograd of
+                   that total on the card (rtol and atol 5e-3);
   CLI and bench (kernels B1-B4 through the port's entry points):
   8a. cli        — the five stages remcmc -> parse -> rdf -> neural -> post
                    in-process through their main(argv) on the card, in a
@@ -143,6 +168,10 @@ Phases, in order (any failed check exits non-zero):
                    the virial pressure, and T_m of one classifier
                    trained on either side's features, each within 4
                    standard errors; diag 0 and T_m inside the grid.
+  9a. eam-gather-physics — the same chains, gates and reference through
+                   melting_pipeline's default engine, gather (like for
+                   like: the reference is the JAX gather engine's); each
+                   chain's seconds, ms a sweep, rebuilds and host syncs.
   Serial path (kernel B5 lj_delta: the run kernel, position_run, and the
   batched one, delta_moves) and the probe (kernel P1):
   10. serial-small — batched B5 against its plain version, dE and dW, at
@@ -186,6 +215,15 @@ Phases, in order (any failed check exits non-zero):
                    neuralmelting_tpu_torch.probe), each variant held to its
                    plain version again at those passes, with its SASS
                    counts a pass and both shares.
+  15a. eam-gather-full — eambench's physics (4096 Al atoms, 16x8x8 fcc,
+                   the rc 3.8 table) on the JAX CLI's default 4x16 grid
+                   (R=64), two chunks of 1 record x 2 sweeps through
+                   setup_run (the first captures the graphs), CUDA events
+                   only (no profiler, which gather-full's sweep must be
+                   the only one to run on graph replays): ms a sweep,
+                   attempted moves/s, rebuilds, host syncs and graph
+                   replays a sweep, K, the cells and peak memory;
+  16. gather-full — (5d above) last.
 
 The last lines are the card's name and power limit (nvidia-smi), the
 kernels' JSON line (each kernel's launches on its path's main run, error
@@ -255,6 +293,7 @@ from neuralmelting_tpu_torch.ops import _build
 from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
+from neuralmelting_tpu_torch.ops import eam_energy as EE
 from neuralmelting_tpu_torch.ops import jrandom as J
 from neuralmelting_tpu_torch.ops import lj_delta as LD
 from neuralmelting_tpu_torch.ops import neighbors as NB
@@ -848,29 +887,30 @@ def f32_ulps(a, b):
     return int((ia - ib).abs().max())
 
 
-def gather_chunk(cfg, device, graphs=True):
+def gather_chunk(cfg, device, graphs=True, setfl=None):
     """setup_run + one chunk of the gather engine: (setup, recs, frames,
     hist, xacc, diag) as run_sampling returns them. ``graphs`` False runs
     the run function of the same parameters with its stages eager on the
     card."""
-    setup = runner.setup_run(cfg, device=device)
+    setup = runner.setup_run(cfg, setfl=setfl, device=device)
     if graphs:
         return runner.run_sampling(setup, write_files=False)
     run = ENS.make_ensemble_run_fn(
         setup.us.kb, setup.us.p2e, setup.cellcfg,
         **runner.gather_run_kwargs(setup, cfg.nsmpl, True), graphs=False)
-    (states, _, _, _, recs, frames, hist, xacc, diag, _) = run(
+    (states, _, aux, _, recs, frames, hist, xacc, diag, _) = run(
         setup.states, setup.nls, setup.aux, setup.slot_of,
         J.key(cfg.seed + 1).to(setup.device), setup.pot, setup.table,
         setup.t_grid, setup.p_grid)
-    return (dataclasses.replace(setup, states=states), recs, frames, hist,
-            xacc, int(diag))
+    return (dataclasses.replace(setup, states=states, aux=aux), recs,
+            frames, hist, xacc, int(diag))
 
 
-def hold_chunk(a, b, tag):
+def hold_chunk(a, b, tag, scale=None):
     """Two chunks of one configuration: hist, xacc and every decision
-    (acc_* records) equal, energies and frames within the stated limits.
-    Returns the largest differences."""
+    (acc_* records) equal, energies and frames within the stated limits,
+    relative to each value or, for a field in ``scale``, to its (R,)
+    summed term magnitudes. Returns the largest differences."""
     check(torch.equal(a[3].cpu(), b[3].cpu()) and torch.equal(
         a[4].cpu(), b[4].cpu()), f"[{tag}] hist or xacc differ: "
           f"{a[4].tolist()} vs {b[4].tolist()}")
@@ -880,13 +920,45 @@ def hold_chunk(a, b, tag):
     err = {}
     for f, tol in (("pe", G_RTOL), ("virial", G_RTOL), ("vol", G_VOL)):
         x, y = getattr(a[1], f).cpu(), getattr(b[1], f).cpu()
-        err[f] = float(((x - y).abs() / y.abs()).max())
+        ref = y.abs() if f not in (scale or {}) else scale[f].cpu()
+        err[f] = float(((x - y).abs() / ref).max())
         check(err[f] <= tol, f"[{tag}] {f} rel {err[f]:.2e} > {tol}")
     lmax = float(b[2][1].max())
     err["pos"] = float((a[2][0].cpu() - b[2][0].cpu()).abs().max()) / lmax
     check(err["pos"] <= G_POS, f"[{tag}] frames differ by {err['pos']:.2e}"
           f" of the box edge")
     return err
+
+
+def compiled_against_eager(tag, g, style, kd, sg, ag, tg):
+    """The card's pass (its colour substeps through torch.compile) against
+    the same pass with eager substeps on the card, from the same state:
+    decisions equal but where a margin is below G_MARGIN, positions, pe
+    and the density cache within the gather tests' limits."""
+    one_pass = CB.make_cb_pass_fn(g.us.kb, g.cellcfg, style, compiled=False)
+    te = []
+    se, ae = one_pass(g.pot, g.table, g.states, g.nls, g.aux, g.states.dpos,
+                      kd, trace=te)
+    differ, margins = 0, []
+    for (vg, a1, _), (ve, a2, me) in zip(tg, te):
+        bad = (a1 != a2) & ve
+        differ += int(bad.sum())
+        margins += me[bad].abs().tolist()
+    check(all(m < G_MARGIN for m in margins), f"[{tag}] compiled against "
+          f"eager substeps: a decision differs beyond rounding: {margins}")
+    err = {"pos": float((sg.pos - se.pos).abs().max() / se.box.max()),
+           "pe": float(((sg.pe - se.pe) / se.pe).abs().max())}
+    if style == "eam":
+        err["rho"] = rho_err(ag, ae)
+    if not differ:
+        check(err["pos"] <= G_POS and err["pe"] <= G_RTOL
+              and err.get("rho", 0.0) <= G_RTOL,
+              f"[{tag}] compiled against eager substeps: {err}")
+    log(f"[{tag}] the pass with compiled colour substeps against eager ones "
+        f"on the card: {differ} decisions differ"
+        + (f" (margins {margins})" if differ else "") + ", "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+        + f"; pe {f32_ulps(sg.pe, se.pe)} f32 ulps apart")
 
 
 def phase_gather_small(name):
@@ -912,11 +984,12 @@ def phase_gather_small(name):
         f" equal bit for bit; ln u within {ln_ulps} f32 ulps; HMC normals "
         f"within {n_ulps} ulps, {100 * n_share:.2f}% not equal (the card's "
         "log and log1p against the CPU's)")
-    # one pass from the same state, eager on both: each decision's margin
+    # one pass from the same state (the card's colour substeps compiled):
+    # each decision's margin
     one_pass = CB.make_cb_pass_fn(g.us.kb, cc)
     tg, tc = [], []
-    sg, _ = one_pass(g.pot, g.table, g.states, g.nls, g.aux, g.states.dpos,
-                     kd, trace=tg)
+    sg, ag = one_pass(g.pot, g.table, g.states, g.nls, g.aux, g.states.dpos,
+                      kd, trace=tg)
     sc, _ = one_pass(c.pot, c.table, c.states, c.nls, c.aux, c.states.dpos,
                      kd.cpu(), trace=tc)
     differ, margins = 0, []
@@ -933,6 +1006,7 @@ def phase_gather_small(name):
         pos_err = float((sg.pos.cpu() - sc.pos).abs().max())
         check(pos_err <= G_POS * float(sc.box.max()),
               f"[gather-small] pass positions differ by {pos_err}")
+    compiled_against_eager("gather-small", g, "pair", kd, sg, ag, tg)
     # one chunk: graphs against eager on the card (bits), card against CPU
     ENS.reset_counts()
     a = gather_chunk(cfg, DEV)
@@ -1394,6 +1468,217 @@ def phase_eam_main(name, table):
 
 
 # ---------------------------------------------------------------------------
+# EAM on the gather engine (no TPU kernel: the same graphed torch stages,
+# with the spline tables on the card and the density cache)
+# ---------------------------------------------------------------------------
+
+# 256 Al atoms on the rc 3.8 table (stride-2 cells at 2 rc: (2, 2, 2)),
+# a 2x2 grid close enough for swaps, 2 records of 2 sweeps
+EAM_GATHER_SMALL = dict(name="egsmall", element="AL", ncells=(4, 4, 4),
+                        npress=2, ntemp=2, press=(1.0, 500.0),
+                        temp=(900.0, 950.0), nsmpl=2, mod=2, ncut=0, seed=3,
+                        dpos0=0.1, dvol0=0.01)
+
+
+def eam_virial_scale(setup):
+    """(R,) summed magnitudes 0.5 sum |w_ij| of the virial's pair terms
+    at ``setup``'s state: EAM's virial nearly cancels at low pressure, so
+    it is held to them, as tests/test_torch_gather_eam_ops.py holds it."""
+    st = setup.states
+    r, valid, _, _, _, _, phi_der, _, emb = EE._pair_terms(
+        setup.pot, st.pos, st.box, setup.nls)
+    return 0.5 * torch.where(valid, r * (phi_der + emb), 0.0).abs().sum(
+        (-2, -1))
+
+
+def rho_err(a, b):
+    """Largest |a - b| of two density caches over the largest density."""
+    return float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
+
+
+def phase_eam_gather_small(name, table):
+    """EAM on gather at 256 atoms, R=4: a pass's draws, one pass and one
+    tail (a volume trial and an HMC move) eager on the card against the
+    port on the CPU from the same state, then one chunk: through CUDA
+    graphs against eager on the card (bits), against the CPU (decisions
+    equal, energies, frames and the density cache within the gather
+    tests' limits)."""
+    cfg = RunConfig(**EAM_GATHER_SMALL)
+    g = runner.setup_run(cfg, setfl=table, device=DEV)
+    c = runner.setup_run(cfg, setfl=table, device="cpu")
+    cc = g.cellcfg
+    check(cc.ncell == (2, 2, 2) and g.style == "eam",
+          f"[eam-gather-small] cells {cc.ncell}, style {g.style}")
+    err0 = rho_err(g.aux, c.aux)
+    kd = J.fold_in(g.states.key, 3)
+    dg = CB.pass_draws(kd, cc.ncolors, cc.cells_per_color, g.states.dpos)
+    dc = CB.pass_draws(kd.cpu(), cc.ncolors, cc.cells_per_color,
+                       c.states.dpos)
+    for k, a, b in zip(("shift", "order", "u", "disp"), dg, dc):
+        check(torch.equal(a.cpu(), b), f"[eam-gather-small] draws differ: "
+              f"{k}")
+    ln_ulps = f32_ulps(dg[4], dc[4])
+    n_ulps = f32_ulps(J.normal(g.states.key, (256, 3)),
+                      J.normal(c.states.key, (256, 3)))
+    # one pass (the card's colour substeps compiled): each decision's margin
+    one_pass = CB.make_cb_pass_fn(g.us.kb, cc, "eam")
+    tg, tc = [], []
+    sg, ag = one_pass(g.pot, g.table, g.states, g.nls, g.aux, g.states.dpos,
+                      kd, trace=tg)
+    sc, ac = one_pass(c.pot, c.table, c.states, c.nls, c.aux, c.states.dpos,
+                      kd.cpu(), trace=tc)
+    differ, margins = 0, []
+    for (vg, a1, mg), (vc, a2, mc) in zip(tg, tc):
+        bad = (a1.cpu() != a2) & vc
+        differ += int(bad.sum())
+        margins += mc[bad].abs().tolist()
+    ndec = int(sum(int(v.sum()) for v, _, _ in tc))
+    check(all(m < G_MARGIN for m in margins),
+          f"[eam-gather-small] a decision differs beyond rounding: {margins}")
+    err = {}
+    if not differ:
+        err["pass_pos"] = float((sg.pos.cpu() - sc.pos).abs().max()
+                                / sc.box.max())
+        err["pass_pe"] = float(((sg.pe.cpu() - sc.pe) / sc.pe).abs().max())
+        err["pass_rho"] = rho_err(ag, ac)
+        check(err["pass_pos"] <= G_POS and err["pass_pe"] <= G_RTOL
+              and err["pass_rho"] <= G_RTOL,
+              f"[eam-gather-small] the pass differs: {err}")
+    compiled_against_eager("eam-gather-small", g, "eam", kd, sg, ag, tg)
+    # the tail: a volume trial and an HMC move of 8 leapfrog steps
+    tail = CB.make_cb_tail_fn(g.us.kb, g.us.p2e, nvol=1, nhmc=1, nstps=8,
+                              mass=g.mass, style="eam")
+    kt = J.split(g.states.key, 2)
+    tg_s, tg_a = tail(g.pot, g.states, g.nls, g.aux, kt[:, 0], kt[:, 1])
+    tc_s, tc_a = tail(c.pot, c.states, c.nls, c.aux, kt[:, 0].cpu(),
+                      kt[:, 1].cpu())
+    for f in ("nav", "ntv", "nah", "nth"):
+        check(torch.equal(getattr(tg_s, f).cpu(), getattr(tc_s, f)),
+              f"[eam-gather-small] tail decisions differ: {f}")
+    check(torch.equal(tg_a, EE.rho_sums(g.pot, tg_s.pos, tg_s.box, g.nls)),
+          "[eam-gather-small] the tail's density cache is not rho_sums of "
+          "its configuration")
+    err["tail_pe"] = float(((tg_s.pe.cpu() - tc_s.pe) / tc_s.pe).abs().max())
+    err["tail_rho"] = rho_err(tg_a, tc_a)
+    check(err["tail_pe"] <= G_RTOL and err["tail_rho"] <= G_RTOL,
+          f"[eam-gather-small] the tail differs: {err}")
+    log(f"[eam-gather-small] draws: shift, colour order, picks and "
+        f"displacements equal bit for bit, ln u within {ln_ulps} f32 ulps, "
+        f"HMC normals within {n_ulps}; rho at set-up rel {err0:.2e}; one "
+        f"pass, {ndec} decisions: {differ} differ"
+        + (f", margins {margins}" if differ else "")
+        + f"; the tail (volume + HMC, accepted {int(tg_s.nav.sum())} + "
+        f"{int(tg_s.nah.sum())} of 4 + 4) decisions equal; "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items()))
+    # one chunk: graphs against eager on the card (bits), card against CPU
+    ENS.reset_counts()
+    a = gather_chunk(cfg, DEV, setfl=table)
+    counts = dict(ENS.COUNTS)
+    e = gather_chunk(cfg, DEV, graphs=False, setfl=table)
+    for f in FIELDS:
+        check(torch.equal(getattr(a[0].states, f), getattr(e[0].states, f)),
+              f"[eam-gather-small] graphs against eager: {f} differs")
+    check(torch.equal(a[0].states.key, e[0].states.key)
+          and torch.equal(a[2][0], e[2][0]) and torch.equal(a[0].aux,
+                                                            e[0].aux),
+          "[eam-gather-small] graphs against eager: keys, frames or rho "
+          "differ")
+    b = gather_chunk(cfg, "cpu", setfl=table)
+    err = hold_chunk(a, b, "eam-gather-small",
+                     scale={"virial": eam_virial_scale(b[0])})
+    err["rho"] = rho_err(a[0].aux, b[0].aux)
+    st = a[0].states
+    check(torch.equal(a[0].aux, EE.rho_sums(a[0].pot, st.pos, st.box,
+                                            a[0].nls)),
+          "[eam-gather-small] the chunk's density cache is not rho_sums")
+    check(a[5] == 0 and err["rho"] <= G_RTOL,
+          f"[eam-gather-small] diag {a[5]}, rho rel {err['rho']:.2e}")
+    log(f"[eam-gather-small] chunk of 2 x 2 sweeps, xacc {a[4].tolist()}: "
+        f"CUDA graphs equal eager bit for bit (rho too); against the CPU "
+        f"hist, xacc and decisions equal, pe rel {err['pe']:.2e}, virial "
+        f"{err['virial']:.2e} of its terms' magnitudes, vol {err['vol']:.2e},"
+        f" frames {err['pos']:.2e}"
+        f" of the box edge, rho {err['rho']:.2e}; rho equals rho_sums from "
+        f"scratch; {counts} on {name}")
+
+
+def phase_eam_gather_hmc(name, table):
+    """A short HMC run at config 3's size (256 Al atoms, 10 temperatures),
+    an HMC move of 8 leapfrog steps a sweep: diag 0 (no NL_STALE), HMC
+    moves accepted, pe against a fresh list's total, and the forces
+    against autograd of that total on the card."""
+    cfg = dataclasses.replace(config3(5), name="eghmc", nsmpl=2, mod=4,
+                              ncut=0, phmc=0.05, nstps=8)
+    setup, recs, _, _, _, diag = runner.run_sampling(
+        runner.setup_run(cfg, setfl=table, device=DEV), write_files=False)
+    acc = recs.acc_hmc.cpu()
+    check(diag == 0, f"[eam-gather-hmc] diag {diag} (8: NL_STALE)")
+    check(float(acc.max()) > 0, "[eam-gather-hmc] no HMC move accepted")
+    st, pot = setup.states, setup.pot
+    nls, _ = ENS.build_ensemble_nl(pot, st, cfg.skin, capacity=setup.cap)
+    pe_list, _ = EE.total_energy_virial(pot, st.pos, st.box, nls)
+    e1 = float(((st.pe - pe_list).abs() / pe_list.abs()).max())
+    f = EE.forces(pot, st.pos, st.box, nls)
+    p = st.pos.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(
+        EE.total_energy_virial(pot, p, st.box, nls)[0].sum(), p)
+    fmax = float(f.abs().max())
+    e2 = float((f + grad).abs().max()) / fmax
+    log(f"[eam-gather-hmc] 10 replicas x 256 Al atoms, 2 x 4 sweeps, one HMC"
+        f" move a sweep: acc_hmc by record {np.round(acc.numpy(), 3).tolist()}"
+        f", diag {diag}; pe against a fresh list's total rel {e1:.2e} "
+        f"(limit {G_RTOL}); forces against autograd max |f + grad| "
+        f"{e2:.2e} of max |f| = {fmax:.3f} eV/A (limit 5e-3) on {name}")
+    check(e1 <= G_RTOL, "[eam-gather-hmc] pe off its total")
+    check(bool(torch.allclose(f, -grad, rtol=5e-3, atol=5e-3)),
+          "[eam-gather-hmc] forces differ from autograd of the total")
+
+
+def phase_eam_gather_full(name, table):
+    """eambench's physics on the gather engine: 4096 Al atoms (16x8x8 fcc,
+    the rc 3.8 table) on the JAX CLI's default 4x16 grid (R=64), two
+    chunks of 1 record x 2 sweeps through setup_run (the first captures
+    the CUDA graphs), timed with CUDA events only."""
+    lin = lambda a, b, n: tuple(float(v) for v in np.linspace(a, b, n))
+    cfg = dataclasses.replace(FULL["eam"], name="egfull", npress=4,
+                              ntemp=16, press=lin(1.0, 5000.0, 4),
+                              temp=lin(600.0, 1400.0, 16), nsmpl=1, mod=2)
+    sweeps = cfg.nsmpl * cfg.mod
+
+    def timed_ms(fn):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    torch.cuda.reset_peak_memory_stats()
+    setup, ms_setup = timed_ms(lambda: runner.setup_run(cfg, setfl=table,
+                                                        device=DEV))
+    for k in range(2):
+        ENS.reset_counts()
+        moves0 = float(setup.moves_tried)
+        out, ms = timed_ms(lambda: runner.run_sampling(setup,
+                                                       write_files=False))
+        setup, diag = out[0], out[5]
+        check(diag == 0, f"[eam-gather-full] chunk {k} diag {diag}")
+        c = dict(ENS.COUNTS)
+        rate = (float(setup.moves_tried) - moves0) / (ms / 1e3)
+        log(f"[eam-gather-full] chunk {k} ("
+            + ("the first: it captures the CUDA graphs" if k == 0 else
+               "graphs replayed") + f"): {ms / sweeps:.1f} ms a sweep, "
+            f"{rate:.4e} attempted moves/s; a sweep {c['rebuilds'] / sweeps:.2f}"
+            f" rebuilds, {c['syncs'] / sweeps:.2f} host syncs, "
+            f"{c['replays'] / sweeps:.2f} graph replays, {c['passes'] / sweeps:.0f}"
+            f" passes")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[eam-gather-full] R=64 x 4096 Al atoms, cells {setup.cellcfg.ncell}"
+        f" (stride 2 at 2 rc), K={setup.cap}, set-up {ms_setup:.1f} ms, peak "
+        f"memory {peak:.2f} GiB (CUDA events; no profiler) on {name}")
+
+
+# ---------------------------------------------------------------------------
 # the CLI stages and the bench
 # ---------------------------------------------------------------------------
 
@@ -1837,12 +2122,14 @@ def classifier_tm(g_slot, temp, seeds):
     return float(np.mean(out))
 
 
-def phase_eam_physics(name, table):
+def phase_eam_physics(name, table, engine="cellmc"):
     """docs/VALIDATION.md config 3 against the JAX gather engine's chains
     of it (eam_config3_gather.json, from scripts/eam_config3_reference.py:
-    the same seeds, on the CPU). Gates, with nothing melting in this
-    protocol, so that T_m of one chain and one classifier is mostly the
-    classifier's initial weights (PERF.md):
+    the same seeds, on the CPU), through melting_pipeline on ``engine``:
+    the cellmc engine (tag eam-physics) or the default, gather (tag
+    eam-gather-physics, like for like with the reference). Gates, with
+    nothing melting in this protocol, so that T_m of one chain and one
+    classifier is mostly the classifier's initial weights (PERF.md):
     - every chain diag 0 with T_m inside the grid;
     - sampling, no classifier: per slot, pe/N, V and the virial pressure
       pooled over the chains within Z_PHYS standard errors of the JAX
@@ -1850,18 +2137,33 @@ def phase_eam_physics(name, table):
     - T_m, one classifier: the port's classifier, trained from seeds 0-3
       on each chain's features, gives the same mean T_m on the port's
       chains as on the JAX chains within Z_PHYS standard errors (from the
-      chain-to-chain spread, pooled over both sides)."""
+      chain-to-chain spread, pooled over both sides).
+    On gather it also prints each chain's seconds, ms a sweep, rebuilds
+    and host syncs."""
+    tag = "eam-physics" if engine == "cellmc" else "eam-gather-physics"
     with open(REFERENCE) as f:
         ref = json.load(f)
     seeds = ref["chain_seeds"]
     temp = np.asarray(ref["temp_K"], np.float32)
     t = time.perf_counter()
-    runs = [melting_pipeline(config3(s), setfl=table, engine="cellmc",
-                             nbins=ref["nbins"]) for s in seeds]
+    runs = []
+    for s in seeds:
+        ENS.reset_counts()
+        tc = time.perf_counter()
+        runs.append(melting_pipeline(config3(s), setfl=table, engine=engine,
+                                     nbins=ref["nbins"]))
+        if engine == "gather":
+            c, res = ENS.COUNTS, runs[-1]
+            log(f"[{tag}] chain {s}: {time.perf_counter() - tc:.1f} s "
+                f"(sampling {res.seconds['sampling']:.1f} s, "
+                f"{1e3 * res.seconds['sampling'] / c['sweeps']:.2f} ms a "
+                f"sweep over {c['sweeps']} sweeps), {c['rebuilds']} "
+                f"rebuilds, {c['syncs']} host syncs, {c['passes']} passes, "
+                f"{c['replays']} graph replays")
     for s, res in zip(seeds, runs):
         check(res.diag == 0 and math.isfinite(float(res.tm[0]))
               and temp[0] <= float(res.tm[0]) <= temp[-1],
-              f"[eam-physics] chain {s}: diag {res.diag}, T_m {res.tm}")
+              f"[{tag}] chain {s}: diag {res.diag}, T_m {res.tm}")
     batches = [slot_batches(res, config3(0).ncut, ref["batches_per_chain"],
                             ref["natoms"]) for res in runs]
     worst = 0.0
@@ -1871,12 +2173,12 @@ def phase_eam_physics(name, table):
         rm, rse = np.asarray(ref[key]), np.asarray(ref[key + "_se"])
         z = (m - rm) / np.sqrt(se ** 2 + rse ** 2)
         worst = max(worst, float(np.abs(z).max()))
-        log(f"[eam-physics] {key} by slot, port {m.tolist()} (se "
+        log(f"[{tag}] {key} by slot, port {m.tolist()} (se "
             f"{se.tolist()}); JAX gather {rm.tolist()}; z "
             f"{np.round(z, 2).tolist()}")
-    log(f"[eam-physics] sampling: max |z| {worst:.2f} over 3 x "
+    log(f"[{tag}] sampling: max |z| {worst:.2f} over 3 x "
         f"{len(temp)} slots, {len(seeds)} chains a side (limit {Z_PHYS})")
-    check(worst < Z_PHYS, f"[eam-physics] sampling differs from the JAX "
+    check(worst < Z_PHYS, f"[{tag}] sampling differs from the JAX "
           f"gather chains: max |z| {worst:.2f}")
     tm_p = np.array([classifier_tm(res.g_slot, temp, CLF_SEEDS)
                      for res in runs])
@@ -1886,19 +2188,19 @@ def phase_eam_physics(name, table):
     se = spread * math.sqrt(2.0 / len(seeds))
     diff = float(tm_p.mean() - tm_j.mean())
     dt = time.perf_counter() - t
-    log(f"[eam-physics] T_m, the port's classifier (seeds "
+    log(f"[{tag}] T_m, the port's classifier (seeds "
         f"{list(CLF_SEEDS)}) by chain: on the port's chains "
         f"{np.round(tm_p, 1).tolist()}, mean {tm_p.mean():.1f} K; on the "
         f"JAX chains {np.round(tm_j, 1).tolist()}, mean {tm_j.mean():.1f} "
         f"K; difference {diff:.1f} K, z {diff / se:.2f} (limit {Z_PHYS})")
     tm_pipe = [round(float(res.tm[0]), 1) for res in runs]
     tm_jax = [c["tm_K"] for c in ref["chains"]]
-    log(f"[eam-physics] the pipeline's T_m by chain (classifier seed 0): "
+    log(f"[{tag}] the pipeline's T_m by chain (classifier seed 0): "
         f"port {tm_pipe}, JAX gather {np.round(tm_jax, 1).tolist()}; chain "
         f"{seeds[0]}: port {tm_pipe[0]} K against the JAX cellmc leg's "
         f"1766.3 K (eam_tm_ab.json clong): {abs(tm_pipe[0] / 1766.3 - 1):.4f};"
         f" {dt:.1f} s on {name}")
-    check(abs(diff) < Z_PHYS * se, f"[eam-physics] T_m on the port's chains "
+    check(abs(diff) < Z_PHYS * se, f"[{tag}] T_m on the port's chains "
           f"differs from T_m on the JAX chains: {diff:.1f} K, se {se:.1f}")
 
 
@@ -2441,18 +2743,24 @@ def main():
               ("eam-small", lambda: phase_eam_small(table)),
               ("eam-full", lambda: phase_eam_full(name, table)),
               ("eam-main", lambda: phase_eam_main(name, table)),
+              ("eam-gather-small",
+               lambda: phase_eam_gather_small(name, table)),
+              ("eam-gather-hmc", lambda: phase_eam_gather_hmc(name, table)),
               ("cli", lambda: phase_cli(name)),
               ("bench", lambda: phase_bench(name)),
               ("northstar", lambda: phase_northstar(name)),
               ("coexist", lambda: phase_coexist(name)),
               ("sweep", lambda: phase_sweep(name)),
               ("eam-physics", lambda: phase_eam_physics(name, table)),
+              ("eam-gather-physics",
+               lambda: phase_eam_physics(name, table, engine="gather")),
               ("serial-small", phase_serial_small),
               ("serial-full", lambda: phase_serial_full(name)),
               ("serial-run", lambda: phase_serial_run(name)),
               ("golden", lambda: phase_golden(name)),
               ("golden-hmc", lambda: phase_golden_hmc(name)),
               ("probe", lambda: phase_probe(name)),
+              ("eam-gather-full", lambda: phase_eam_gather_full(name, table)),
               ("gather-full", lambda: phase_gather_full(name)))
     for ph, fn in phases:
         t = time.perf_counter()

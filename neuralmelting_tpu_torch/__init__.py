@@ -9,9 +9,11 @@ so each counterpart is easy to find:
   "gather", as in the JAX package, and "cellmc" is the other.
 * ``runner`` — setup, chunked sampling, geometry maintenance.
 * ``parallel/ensemble.py``, ``sampler/checkerboard.py`` and
-  ``ops/neighbors.py`` — the gather engine (LJ): checkerboard passes over
-  neighbour lists in torch operations, replayed from CUDA graphs on the
-  card; it launches no hand-written kernel.
+  ``ops/neighbors.py`` (LJ), ``ops/eam_energy.py`` (EAM) — the gather
+  engine, for LJ and EAM: checkerboard passes over neighbour lists in
+  torch operations, replayed from CUDA graphs on the card, where a pass's
+  colour substeps run through ``torch.compile``; it launches no
+  hand-written kernel.
 * ``sampler/`` — state, chunk engines, adaptation, records, tempering.
 * ``ops/cellmc.py`` (LJ) and ``ops/cellmc_eam.py`` (EAM) — the
   hand-written CUDA kernels (``csrc/``) of the cellmc engine, which carry

@@ -52,8 +52,8 @@ def main(argv=None):
     ap.add_argument("--engine", default="gather",
                     choices=("gather", "dense", "cellmc"),
                     help="gather (default) = checkerboard passes over "
-                         "neighbour lists, LJ, the only engine with HMC "
-                         "(--phmc); cellmc = the cell-MC CUDA kernels (LJ "
+                         "neighbour lists, LJ and EAM, the only engine with "
+                         "HMC (--phmc); cellmc = the cell-MC CUDA kernels (LJ "
                          "stride-2, EAM stride-3 Chebyshev); dense is not "
                          "ported (the runner names its ROADMAP item)")
     ap.add_argument("--restart", default=None,

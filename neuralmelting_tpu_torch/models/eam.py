@@ -2,19 +2,24 @@
 port's counterpart of ``neuralmelting_tpu.models.eam``).
 
 The host-side parser reads the standard single-element setfl layout;
-tables become natural cubic splines. Everything here is numpy: the
-sampler evaluates the Chebyshev refit of these tables
-(``models/eam_cheb.py``), never the splines, so the splines are needed
-only on the host, for the refit.
+tables become natural cubic splines, kept as numpy in ``EAMAlloy``. Two
+engines read them: the cellmc engine samples their Chebyshev refit
+(``models/eam_cheb.py``), which samples the splines on the host through
+the numpy ``spline_eval``; the gather engine evaluates the splines
+themselves on the run's device, from ``EAMTables`` (``to_device``) and
+the torch ``spline_eval_t``.
 
 Energy model:
     E = sum_i F(rho_i) + 1/2 sum_{i!=j} phi(r_ij),   rho_i = sum_j rho(r_ij)
 where setfl stores F on a rho-grid, rho(r) on an r-grid, and r*phi(r) on the
 same r-grid (the z2r convention).
 
-``spline_eval`` works in float32 with the JAX version's operation order
-(that version runs in f32, jax without x64): the Chebyshev refit samples
-the splines, and equal samples give equal series.
+Both ``spline_eval`` forms work in float32 with the JAX version's
+operation order (that version runs in f32, jax without x64): the
+Chebyshev refit samples the splines, and equal samples give equal
+series; the gather engine's energies then differ from the JAX engine's
+by f32 rounding only (XLA on the CPU contracts the Horner steps into
+multiply-adds, torch does not).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +48,36 @@ class EAMAlloy:
     @property
     def kind(self) -> str:
         return "eam"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EAMTables:
+    """An ``EAMAlloy``'s spline tables on the run's device: the gather
+    engine's potential. ``rc``, ``dr`` and ``drho`` are 0-dim f32 tensors
+    (a tensor divisor makes ``x / dr`` a true division on the card too);
+    ``rc_host`` is the cutoff as a host float, for cell and list sizes.
+    It hashes by identity: a run function and its CUDA graphs belong to
+    one table object."""
+    rc: torch.Tensor         # () f32
+    dr: torch.Tensor         # () f32
+    drho: torch.Tensor       # () f32
+    f_coef: torch.Tensor     # (4, nrho-1) f32
+    rho_coef: torch.Tensor   # (4, nr-1) f32
+    rphi_coef: torch.Tensor  # (4, nr-1) f32
+    rc_host: float = 6.0
+
+    @property
+    def kind(self) -> str:
+        return "eam"
+
+
+def to_device(eam: EAMAlloy, device) -> EAMTables:
+    """The tables of ``eam`` as f32 tensors on ``device``."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return EAMTables(rc=t(eam.rc), dr=t(eam.dr), drho=t(eam.drho),
+                     f_coef=t(eam.f_coef), rho_coef=t(eam.rho_coef),
+                     rphi_coef=t(eam.rphi_coef), rc_host=float(eam.rc_host))
 
 
 @dataclasses.dataclass
@@ -153,6 +189,38 @@ def spline_eval(coef, dx, x):
     val = ((d * u + c) * u + b) * u + a
     der = ((np.float32(3.0) * d * u + np.float32(2.0) * c) * u + b) / dx
     return val, der
+
+
+def _locate(n, dx, x):
+    """The interval i of x on a grid of n intervals of spacing dx and the
+    offset u = x / dx - i within it, as the JAX ``spline_eval`` takes them
+    (its int32 cast and clip give the same i for |x / dx| < 2^31)."""
+    t = x / dx
+    i = torch.clamp(t.to(torch.int64), 0, n - 1)
+    return i, t - i.to(t.dtype)
+
+
+def spline_eval_t(coef, dx, x):
+    """Spline value and derivative at x (a tensor of any shape, f32) on
+    x's device: ``coef`` (4, n-1) and the 0-dim spacing ``dx`` tensors
+    there (``EAMTables``), in the JAX operation order."""
+    i, u = _locate(coef.shape[1], dx, x)
+    a, b, c, d = coef[:, i].unbind(0)
+    val = ((d * u + c) * u + b) * u + a
+    der = ((3.0 * d * u + 2.0 * c) * u + b) / dx
+    return val, der
+
+
+def spline_vals_t(coefs, dx, x):
+    """The values alone of one or more tables on one grid at x, located
+    once: each equals ``spline_eval_t``'s value bit for bit (the trial
+    moves need no derivative, and fewer device operations a move)."""
+    i, u = _locate(coefs[0].shape[1], dx, x)
+    out = []
+    for coef in coefs:
+        a, b, c, d = coef[:, i].unbind(0)
+        out.append(((d * u + c) * u + b) * u + a)
+    return tuple(out)
 
 
 def interaction_range(pot) -> float:

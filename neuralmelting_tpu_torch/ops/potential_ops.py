@@ -1,11 +1,10 @@
 """Uniform potential interface of the gather engine (counterpart of
 ``neuralmelting_tpu.ops.potential_ops``).
 
-``aux`` is potential-specific cached state threaded through the sampler:
-empty for pair potentials, the per-atom density cache for EAM. Pair
-potentials (LJ) are ported; EAM over neighbour lists
-(``ops/eam_energy.py``) is ROADMAP A13 item 3, so ``eam_ops`` and every
-lookup that selects it raise.
+One sweep implementation serves pair potentials (LJ, ``ops/neighbors.py``)
+and EAM (``ops/eam_energy.py``). ``aux`` is potential-specific cached
+state threaded through the sampler: empty (R, 0) for pair potentials,
+the per-atom density cache (R, N) for EAM.
 """
 
 from __future__ import annotations
@@ -15,11 +14,8 @@ from typing import Callable
 
 import torch
 
+from neuralmelting_tpu_torch.ops import eam_energy as EE
 from neuralmelting_tpu_torch.ops import neighbors as NB
-
-EAM_LATER = ("EAM over neighbour lists (the gather engine's ops/eam_energy.py)"
-             " is not ported yet: ROADMAP A13 item 3; EAM runs on the cellmc "
-             "engine (engine=\"cellmc\")")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,19 +47,19 @@ pair_ops = PotentialOps(
 )
 
 
-def _eam_later(*_args, **_kw):
-    raise NotImplementedError(EAM_LATER)
-
-
-eam_ops = PotentialOps(kind="eam", range_factor=2.0, init_aux=_eam_later,
-                       total=_eam_later, delta=_eam_later,
-                       apply_accept=_eam_later, forces=_eam_later)
+eam_ops = PotentialOps(
+    kind="eam",
+    range_factor=2.0,
+    init_aux=EE.rho_sums,
+    total=EE.total_energy_virial,
+    delta=EE.delta_moves,
+    apply_accept=EE.apply_accept,
+    forces=EE.forces,
+)
 
 
 def ops_for_style(style: str) -> PotentialOps:
-    if style == "eam":
-        raise NotImplementedError(EAM_LATER)
-    return pair_ops
+    return eam_ops if style == "eam" else pair_ops
 
 
 def ops_for(pot) -> PotentialOps:

@@ -25,9 +25,10 @@ rebuild decisions) and the tail (volume trials, HMC, the diag bits). On
 the card each stage is replayed from a CUDA graph captured from the same
 function at its first call (one graph per stage and input shape): the
 same kernels in the same order, so the same bits as eager execution
-(chip_smoke holds them to it), without a host launch for each of the ~60
-small operations of a colour substep. The graphs live as long as the run
-function. On the CPU the stages run eagerly.
+(chip_smoke holds them to it), without a host launch for each of a
+pass's small operations (its colour substeps are compiled:
+``checkerboard.compiled_colour_step``). The graphs live as long as the
+run function. On the CPU the stages run eagerly.
 """
 
 from __future__ import annotations
@@ -144,7 +145,10 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
     ``xacc`` (nrecords,) accepted swaps, ``diag`` 0-dim int32 bits.
     ``npasses=0`` picks ~N attempts a sweep (needs ``natoms``).
     ``graphs`` replays the stages from CUDA graphs on the card. One run
-    function serves one potential.
+    function serves one potential object: the graphs hold its constants
+    (LJ) or its device tables (EAM, ``models.eam.EAMTables``). ``aux`` is
+    the potential's cache (``build_ensemble_aux``); for EAM it is rebuilt
+    from scratch after every tail and at every record.
     """
     if npasses <= 0:
         if natoms <= 0:
@@ -194,7 +198,8 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                     *draws)
 
         def build(pos, box):
-            nl = NB.build(pos, box, NB.f32_rlist(rc, skin), capacity)
+            nl = NB.build(pos, box, NB.f32_rlist(pot.rc_host, skin),
+                          capacity)
             return nl.idx, nl.count, nl.ref_pos, nl.ref_box, nl.rlist, \
                 nl.overflow
 
@@ -287,9 +292,12 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
         for _ in range(mod):
             states, nls, aux, diag = run_stages(pot, table, states, nls, aux,
                                                 diag)
-        # kill f32 drift of the incremental accumulators at every record
+        # kill f32 drift of the incremental accumulators at every record;
+        # also rebuild the potential cache (EAM rho) from scratch
         pe, vir = pops.total(pot, states.pos, states.box, nls)
         states = states.replace(pe=pe, virial=vir)
+        if pops.kind != "pair":
+            aux = pops.init_aux(pot, states.pos, states.box, nls)
         rec = make_record(states, kb)
         tried = tried + states.ntp.sum() + states.ntv.sum()
         states = adapt_step_sizes(states, targets=targets, factor=factor)
@@ -364,12 +372,13 @@ def build_ensemble_nl(pot, states, skin: float,
             box_host = states.box[0].cpu().numpy()
         capacity = NB.suggest_capacity(states.pos.shape[-2], box_host,
                                        pot.rc_host + skin)
-    return NB.build(states.pos, states.box, NB.f32_rlist(pot.rc, skin),
+    return NB.build(states.pos, states.box, NB.f32_rlist(pot.rc_host, skin),
                     capacity), capacity
 
 
 def build_ensemble_aux(pot, states, nls):
-    """Per-replica potential cache: empty (R, 0) for pair potentials."""
+    """Per-replica potential cache: the EAM density (R, N); empty (R, 0)
+    for pair potentials."""
     return PO.ops_for(pot).init_aux(pot, states.pos, states.box, nls)
 
 

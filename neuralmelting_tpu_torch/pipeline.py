@@ -2,8 +2,8 @@
 ``neuralmelting_tpu.pipeline``): sampling -> g(r) and S(q) -> extreme-T
 phase classifier -> T_m per pressure, from one call.
 
-Sampling runs on the gather engine (LJ; the default, as in the JAX
-package) or the cellmc engine (LJ or EAM), in one process; trajectories
+Sampling runs on the gather engine (the default, as in the JAX package)
+or the cellmc engine, each for LJ and EAM, in one process; trajectories
 stay on the device through featurization, and only the slot-ordering of
 features and the logistic fits run on the host.
 """
@@ -75,11 +75,10 @@ def melting_pipeline(cfg: RunConfig, setfl: Optional[str] = None,
                      device="cuda") -> MeltingResult:
     """The JAX signature plus ``device``, the card unless the caller asks
     for "cpu" (without a usable GPU the default raises). Runs
-    ``engine="gather"`` for LJ (with HMC when ``cfg.phmc > 0``) and
-    ``engine="cellmc"`` for LJ and for EAM (``element="AL"``, the setfl
-    table ``setfl`` or the synthetic Al table); other engines, and EAM on
-    gather, raise NotImplementedError naming the ROADMAP item that brings
-    them.
+    ``engine="gather"`` (with HMC when ``cfg.phmc > 0``) and
+    ``engine="cellmc"``, each for LJ and for EAM (``element="AL"``, the
+    setfl table ``setfl`` or the synthetic Al table); other engines raise
+    NotImplementedError naming the ROADMAP item that brings them.
 
     init="liquid" pre-melts every replica (runner.liquid_start) for the
     cooling-leg estimate and needs ``classify_with``, the heating leg's

@@ -6,11 +6,13 @@ Builds the potential and the replica ensemble from a ``RunConfig`` on a
 ``device`` (the card unless the caller passes ``device="cpu"``) and
 advances it in chunks with tempering. Two engines:
 
-* ``gather`` (the default, as in the JAX package; LJ): checkerboard
-  passes over per-replica neighbour lists (parallel/ensemble.py) on
-  stride-4 cells, every draw from the replicas' ``jax.random`` keys, with
-  volume trials and, with ``phmc > 0``, one HMC move a sweep; exchange
-  is always on;
+* ``gather`` (the default, as in the JAX package; LJ and EAM):
+  checkerboard passes over per-replica neighbour lists
+  (parallel/ensemble.py), every draw from the replicas' ``jax.random``
+  keys, with volume trials and, with ``phmc > 0``, one HMC move a sweep;
+  exchange is always on. LJ runs on stride-4 cells at rc; EAM samples
+  its setfl splines (``models.eam.EAMTables`` on the run's device) on
+  stride-2 cells at its interaction range 2 rc, with a density cache;
 * ``cellmc`` (LJ and EAM): the ensemble binned into slabs, geometry
   maintenance (kcap hysteresis, cell-grid refresh) and the slab-overflow
   retry from a pre-chunk snapshot. LJ runs on stride-2 cells with
@@ -22,10 +24,10 @@ A chunk can log a ``sampling_chunk`` metrics event, write the
 per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a checkpoint
 (``io/checkpoint.py``) that ``restore_setup`` resumes exactly.
 
-Not here yet, each named with the ROADMAP item that brings it: EAM on
-the gather engine (A13 item 3), the dense engine (A14, not ported),
-multi-GPU (A12). Unlike the JAX runner there is no compile cache
-(nothing is traced) and no scoped-VMEM guard (a TPU compiler limit).
+Not here yet, each named with the ROADMAP item that brings it: the
+dense engine (A14, not ported), multi-GPU (A12). Unlike the JAX runner
+there is no compile cache (nothing is traced) and no scoped-VMEM guard
+(a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ _LATER = {
 @dataclasses.dataclass
 class RunSetup:
     cfg: RunConfig
-    pot: object                # LJCut, or the sampled EAMCheb
+    pot: object                # LJCut; EAM: EAMTables on gather, the
+                               # sampled EAMCheb on cellmc
     style: str                 # "pair" | "eam"
     us: units.UnitSystem
     press: np.ndarray          # (npress,)
@@ -83,7 +86,7 @@ class RunSetup:
     engine: str = "gather"     # "gather" | "cellmc"
     mass: float = 1.0
     # gather engine: per-replica neighbour lists, the potential cache,
-    # the list capacity and the stride-4 checkerboard
+    # the list capacity and the checkerboard (stride 4 LJ, 2 EAM)
     nls: object = None
     aux: object = None
     cap: int = 0
@@ -144,15 +147,14 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
               engine: str = "gather", device="cuda") -> RunSetup:
     """The ensemble of ``cfg`` on ``device`` with exact energies: on the
     gather engine (the default) with its neighbour lists and the JAX
-    runner's stride-4 checkerboard, on the cellmc engine binned into
+    runner's checkerboard (stride 4 at rc for LJ, stride 2 at 2 rc for
+    EAM, with the density cache), on the cellmc engine binned into
     slabs. ``device`` is the card unless the caller asks for "cpu";
     without a usable GPU the default raises."""
     if engine not in ("gather", "cellmc"):
         raise NotImplementedError(
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
     el = ELEMENTS[cfg.element]
-    if engine == "gather" and el.potential.style != "lj/cut":
-        raise NotImplementedError(PO.EAM_LATER)
     if cfg.phmc > 0 and engine == "cellmc":
         raise ValueError(
             f"HMC (phmc={cfg.phmc}) is not offered on the cellmc engine: "
@@ -174,8 +176,11 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
         states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
                                dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev,
                                seed=cfg.seed)
-        cellcfg = cells_ops.make_cell_config(box, pot.rc_host, stride=4,
-                                             dpos_cap=0.25)
+        if style == "eam":
+            pot = eam_mod.to_device(pot, dev)
+        cellcfg = cells_ops.make_cell_config(
+            box, eam_mod.interaction_range(pot),
+            stride=4 if style == "pair" else 2, dpos_cap=0.25)
         cap = cfg.max_neighbors if cfg.max_neighbors > 0 else None
         nls, cap = ENS.build_ensemble_nl(pot, states, skin=cfg.skin,
                                          capacity=cap, box_host=box)
@@ -275,9 +280,9 @@ def checkpoint_extras(setup: RunSetup) -> dict:
     were built from and their capacity, so the restored lists are the
     same lists. Cellmc: the host generator's state and device, and the
     slabs as the chunk left them (geometry, grid shift, coordinates in
-    the shifted frame and the atom of every slot). The density slab of
-    EAM is recomputed at restore, as exactly as the last record computed
-    it."""
+    the shifted frame and the atom of every slot). EAM's density (the
+    gather cache, the cellmc slab) is recomputed at restore, as exactly
+    as the last record computed it."""
     if setup.engine == "gather":
         return {"nl_ref_pos": setup.nls.ref_pos,
                 "nl_ref_box": setup.nls.ref_box,

@@ -22,7 +22,8 @@ from the JAX engine's only where its margin is at f32 rounding.
 The caller owns the neighbour-list discipline (parallel/ensemble.py
 rebuilds between passes); the functions here run on CPU and CUDA tensors
 alike and copy nothing from the host to the device, so a CUDA graph can
-capture a pass or a tail.
+capture a pass or a tail. On CUDA tensors a pass's colour substeps run
+through ``torch.compile`` (``compiled_colour_step``).
 """
 
 from __future__ import annotations
@@ -111,7 +112,53 @@ def pick_movers(table, colors, count, start, sorted_ids, u):
     return sorted_ids.gather(1, slot).reshape(cells.shape), cnt > 0
 
 
-def make_cb_pass_fn(kb, cellcfg: cells_ops.CellConfig, style: str = "pair"):
+def colour_step(pops, pot, pos, box, nl, aux, pid, ok, disp, ln_u, nbeta,
+                pe, vir):
+    """One colour substep of a pass: movers ``pid`` (R, M) (``ok`` where
+    their cell is occupied) displaced by ``disp`` (R, M, 3), decided on
+    ``ln_u`` (R, M) against ``nbeta`` (R, 1) dE; the accepted moves added
+    into the positions, the potential cache, pe and the virial. Returns
+    (pos, aux, pe, vir, acc, de)."""
+    pid3 = pid[..., None].expand(-1, -1, 3)
+    old_r = pos.gather(1, pid3)
+    new_r = old_r + disp
+    de, dw, payload = pops.delta(pot, pos, box, nl, aux, pid, new_r)
+    acc = ok & (ln_u < nbeta * de)
+    delta = torch.where(acc[..., None],
+                        moves.wrap_pos(new_r, box[:, None, :]) - old_r, 0.0)
+    # duplicate pids only occur for empty cells (delta == 0): an add is
+    # exact in any order where a set would race
+    pos = pos.scatter_add(1, pid3, delta)
+    aux = pops.apply_accept(aux, pid, acc, payload)
+    # pe and virial in the JAX engine's order: one colour at a time
+    pe = pe + torch.where(acc, de, 0.0).sum(-1)
+    vir = vir + torch.where(acc, dw, 0.0).sum(-1)
+    return pos, aux, pe, vir, acc, de
+
+
+_COMPILED = []
+
+
+def compiled_colour_step():
+    """``colour_step`` through ``torch.compile``, for CUDA tensors: the ~60
+    (LJ) to ~120 (EAM) small device operations of a substep fuse into a
+    few kernels (compiled at the first call with each potential and
+    shape, in this process, with no pool of compile workers; Dynamo's
+    limit of compiled variants of one function is raised to 64 for
+    them). Its roundings may differ from the eager substep's by an ulp (a
+    contracted multiply-add, a reduction order)."""
+    if not _COMPILED:
+        import torch._dynamo.config as dynamo_config
+        dynamo_config.recompile_limit = max(dynamo_config.recompile_limit,
+                                            64)
+        _COMPILED.append(torch.compile(
+            colour_step, fullgraph=True, dynamic=False,
+            options={"compile_threads": 1}))
+    return _COMPILED[0]
+
+
+def make_cb_pass_fn(kb, cellcfg: cells_ops.CellConfig, style: str = "pair",
+                    compiled: bool = True):
     """Build ``pass_fn(pot, table, states, nl, aux, dpos_eff, pkey) ->
     (states, aux)``: ONE checkerboard pass of every replica (each particle
     trialled at most once). ``table`` is ``cellcfg.active_table`` as an
@@ -121,7 +168,8 @@ def make_cb_pass_fn(kb, cellcfg: cells_ops.CellConfig, style: str = "pair"):
     state; the input's tensors are not changed. ``draws``: the pass's
     ``pass_draws`` made beforehand (then ``pkey`` is not read). With a
     list ``trace``, the pass appends each colour's (valid, accepted, ln u
-    - weight): a decision's margin."""
+    - weight): a decision's margin. On CUDA tensors the colour substeps
+    run through ``compiled_colour_step`` unless ``compiled`` is false."""
     pops = PO.ops_for_style(style)
     ncolors = cellcfg.ncolors
     m = cellcfg.cells_per_color
@@ -137,28 +185,16 @@ def make_cb_pass_fn(kb, cellcfg: cells_ops.CellConfig, style: str = "pair"):
         # the binning is frozen for the pass: every colour's movers at once
         pids, valid = pick_movers(table, order, count, start, sorted_ids, u)
         nbeta = -(1.0 / (kb * states.temp))[:, None]
-        box = states.box[:, None, :]
+        step = compiled_colour_step() \
+            if compiled and states.pos.is_cuda else colour_step
         pos, pe, vir = states.pos, states.pe, states.virial
         accs = []
         for c in range(ncolors):
-            pid, ok = pids[:, c], valid[:, c]
-            pid3 = pid[..., None].expand(-1, -1, 3)
-            old_r = pos.gather(1, pid3)
-            new_r = old_r + disp[:, c]
-            de, dw, payload = pops.delta(pot, pos, states.box, nl, aux,
-                                         pid, new_r)
-            acc = ok & (ln_u[:, c] < nbeta * de)
+            pos, aux, pe, vir, acc, de = step(
+                pops, pot, pos, states.box, nl, aux, pids[:, c],
+                valid[:, c], disp[:, c], ln_u[:, c], nbeta, pe, vir)
             if trace is not None:
-                trace.append((ok, acc, ln_u[:, c] - nbeta * de))
-            delta = torch.where(acc[..., None],
-                                moves.wrap_pos(new_r, box) - old_r, 0.0)
-            # duplicate pids only occur for empty cells (delta == 0): an
-            # add is exact in any order where a set would race
-            pos = pos.scatter_add(1, pid3, delta)
-            aux = pops.apply_accept(aux, pid, acc, payload)
-            # pe and virial in the JAX engine's order: one colour at a time
-            pe = pe + torch.where(acc, de, 0.0).sum(-1)
-            vir = vir + torch.where(acc, dw, 0.0).sum(-1)
+                trace.append((valid[:, c], acc, ln_u[:, c] - nbeta * de))
             accs.append(acc)
         # integer counts: any order is exact
         nap = states.nap + torch.stack(accs, 1).sum((1, 2),
@@ -177,7 +213,8 @@ def make_cb_tail_fn(kb, p2e, nvol: int = 1, nhmc: int = 0,
     the whole-configuration moves ending a sweep (volume trials, then
     HMC), every replica on its own keys (R, 2). The caller must ensure
     the list covers the worst volume shrink and the HMC drift budget
-    (see parallel/ensemble.py). Returns a new state."""
+    (see parallel/ensemble.py). Returns a new state, and for EAM the
+    density cache rebuilt from scratch after those moves."""
     pops = PO.ops_for_style(style)
 
     def tail(pot, states, nl, aux, kvol, khmc):
@@ -196,6 +233,9 @@ def make_cb_tail_fn(kb, p2e, nvol: int = 1, nhmc: int = 0,
                                nstps, mass)
             st.nah = st.nah + acc.to(torch.int32)
             st.nth = st.nth + 1
+        if (nvol or nhmc) and pops.kind != "pair":
+            # whole-configuration moves invalidate the density cache
+            aux = pops.init_aux(pot, st.pos, st.box, nl)
         return st, aux
 
     return tail

@@ -8,9 +8,13 @@
   tests/test_cli_pipeline.py::test_checkpoint_roundtrip).
 - Exact resume, on the CPU: a chunk, a checkpoint, a fresh set-up restored
   from it and a second chunk give the second chunk of an uninterrupted run
-  bit for bit (records, frames, slot history), LJ and EAM. The checkpoint
-  carries the slabs (coordinates in the shifted frame and the atom of
-  every slot), the grid shift and the generator state.
+  bit for bit (records, frames, slot history), LJ and EAM on the cellmc
+  engine and EAM on the gather engine. A cellmc checkpoint carries the
+  slabs (coordinates in the shifted frame and the atom of every slot),
+  the grid shift and the generator state; a gather checkpoint the
+  positions and boxes its lists were built from, and the density cache is
+  rebuilt from them (the chunk ended on a record, which rebuilt it from
+  scratch).
 - ``remcmc --restart`` rebuilds from the restored positions: the first
   resumed record's pe/N is < -4.0 at 4x4x4 (tests/test_cli_pipeline.py's
   restart test), from a port checkpoint and from one without the port's
@@ -70,9 +74,9 @@ def table(tmp_path_factory):
     return path
 
 
-def _setup(cfg, table):
+def _setup(cfg, table, engine="cellmc"):
     return runner.setup_run(cfg, setfl=table if cfg.element == "AL"
-                            else None, engine="cellmc", device="cpu")
+                            else None, engine=engine, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -125,13 +129,16 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
     np.testing.assert_array_equal(extra["note"], np.arange(3))
 
 
-@pytest.mark.parametrize("cfg", [LJ_CFG, AL_CFG], ids=["LJ", "AL"])
-def test_exact_resume(tmp_path, table, cfg):
+@pytest.mark.parametrize("cfg,engine", [(LJ_CFG, "cellmc"),
+                                        (AL_CFG, "cellmc"),
+                                        (AL_CFG, "gather")],
+                         ids=["LJ", "AL", "AL_gather"])
+def test_exact_resume(tmp_path, table, cfg, engine):
     path = str(tmp_path / "c.npz")
-    a = _setup(cfg, table)
+    a = _setup(cfg, table, engine)
     a = runner.run_sampling(a, checkpoint_path=path)[0]
     a, ra, fa, ha, xa, da = runner.run_sampling(a)
-    b = runner.restore_setup(_setup(cfg, table), path)
+    b = runner.restore_setup(_setup(cfg, table, engine), path)
     b, rb, fb, hb, xb, db = runner.run_sampling(b)
     assert da == db == 0
     for f in dataclasses.fields(ra):
@@ -140,7 +147,13 @@ def test_exact_resume(tmp_path, table, cfg):
     assert torch.equal(ha, hb) and torch.equal(xa, xb)
     for f in FIELDS:
         assert torch.equal(getattr(a.states, f), getattr(b.states, f)), f
-    assert torch.equal(a.shift, b.shift)
+    if engine == "cellmc":
+        assert torch.equal(a.shift, b.shift)
+    else:
+        # the lists and the density cache rebuilt at restore are the ones
+        # the uninterrupted run carried
+        assert torch.equal(a.nls.idx, b.nls.idx)
+        assert torch.equal(a.aux, b.aux) and a.aux.shape == (2, 256)
 
 
 def _resume_pe(tmp_path, capsys, strip):

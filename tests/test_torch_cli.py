@@ -17,11 +17,11 @@
   rdf npz give T_m within one grid spacing (as test_slice_tm_matches_jax:
   the classifiers start from different initial weights); ``post
   --no-plot`` prints one row a pressure;
-- ``--engine dense``, EAM on ``--engine gather`` and ``--coordinator``
-  raise, naming their ROADMAP items; without CUDA the stages' default
-  device raises. The staged runs name ``--engine cellmc`` (the default
-  is gather, as in the JAX package; tests/test_torch_gather_runner.py
-  runs it).
+- ``--engine dense`` and ``--coordinator`` raise, naming their ROADMAP
+  items; without CUDA the stages' default device raises. The staged runs
+  name ``--engine cellmc`` (the default is gather, as in the JAX package,
+  for LJ and EAM; tests/test_torch_gather_runner.py and
+  tests/test_torch_gather_eam_runner.py run it).
 """
 
 import glob
@@ -289,13 +289,11 @@ def test_neural_and_post(features, capsys):
     assert len(rows) == 2 and rows[0].strip().startswith("P=")
 
 
-@pytest.mark.parametrize("engine,item", [("gather", "A13"), ("dense", "A14")])
+@pytest.mark.parametrize("engine,item", [("dense", "A14")])
 def test_remcmc_unported_engines_raise(tmp_path, engine, item):
-    # gather runs LJ; what it lacks is EAM over neighbour lists
-    element = ["-e", "AL"] if engine == "gather" else []
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        remcmc.main(MINI + element + ["-o", str(tmp_path), "--device", "cpu",
-                                      "--engine", engine])
+        remcmc.main(MINI + ["-o", str(tmp_path), "--device", "cpu",
+                            "--engine", engine])
 
 
 @pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],

@@ -17,7 +17,9 @@ pe and virial rtol 1e-5 of the summed term magnitudes; ``forces`` atol
 1e-5 of the largest force; ``delta_moves`` dE and dW atol 1e-5 of the
 summed magnitudes of the mover's terms; ``max_displacement`` within 1e-6.
 
-EAM over lists is not ported: its ops raise naming ROADMAP A13 item 3.
+EAM over lists: ``ops_for_style("eam")`` selects its ops, and they run
+on a 256-atom lattice (tests/test_torch_gather_eam_ops.py holds them to
+the JAX package function by function).
 """
 
 import jax
@@ -224,9 +226,24 @@ def test_delta_moves(listed):
     assert torch.equal(de1, tde[:, 3]) and torch.equal(dw1, tdw[:, 3])
 
 
-def test_eam_over_lists_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13 item 3"):
-        PO.ops_for_style("eam")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13 item 3"):
-        PO.eam_ops.total(None, None, None, None)
+def test_eam_over_lists_runs(tmp_path):
+    """EAM over lists is ported: the EAM style selects ``eam_ops``, whose
+    entries are ``ops/eam_energy.py``'s and run on the lists (the
+    function-by-function parity is tests/test_torch_gather_eam_ops.py);
+    LJ keeps ``pair_ops``."""
+    from neuralmelting_tpu_torch.models import eam, eam_gen
+    from neuralmelting_tpu_torch.ops import eam_energy as EE
     assert PO.ops_for(LJCut.create()) is PO.pair_ops
+    assert PO.ops_for_style("eam") is PO.eam_ops
+    assert PO.eam_ops.kind == "eam" and PO.eam_ops.range_factor == 2.0
+    path = str(tmp_path / "al.eam.alloy")
+    eam_gen.write_setfl(path, rc=3.8)
+    pot = eam.to_device(eam.load(path), "cpu")
+    assert PO.ops_for(pot) is PO.eam_ops
+    pos, box = make_supercell("fcc", 4.05, 4)
+    pos, box = _t(pos[None].astype(np.float32)), _t(box[None])
+    nl = NB.build(pos, box.float(), NB.f32_rlist(3.8, 0.4), 64)
+    rho = PO.eam_ops.init_aux(pot, pos, box.float(), nl)
+    assert torch.equal(rho, EE.rho_sums(pot, pos, box.float(), nl))
+    pe, vir = PO.eam_ops.total(pot, pos, box.float(), nl)
+    assert -3.5 < float(pe) / 256 < -2.5 and torch.isfinite(vir).all()

@@ -9,7 +9,8 @@
   in the port as the JAX runner resumes it: the next chunk's hist and
   xacc equal, records within the tolerances of
   tests/test_torch_gather_engine.py;
-- EAM on gather raises naming ROADMAP A13 item 3; ``exchange=False`` on
+- EAM runs on gather, and gather refuses a box too small for its
+  stride-2 cells at 2 rc, as the JAX runner does; ``exchange=False`` on
   gather raises, as in the JAX runner; HMC on cellmc raises;
 - ``melting_pipeline`` and ``remcmc`` with no engine named run gather
   (tiny configs), remcmc with ``--phmc`` trying HMC moves, then resuming
@@ -33,6 +34,7 @@ from neuralmelting_tpu_torch import runner
 from neuralmelting_tpu_torch.cli import remcmc
 from neuralmelting_tpu_torch.config import RunConfig
 from neuralmelting_tpu_torch.io import thermo
+from neuralmelting_tpu_torch.models import eam_gen
 from neuralmelting_tpu_torch.parallel import ensemble as ENS
 from neuralmelting_tpu_torch.sampler.state import FIELDS
 
@@ -124,11 +126,18 @@ def test_jax_checkpoint_resumes_as_in_jax(tmp_path):
                                atol=1e-5 * float(np.max(np.asarray(jfr[1]))))
 
 
-def test_refusals():
+def test_refusals(tmp_path):
+    """EAM runs on gather (tests/test_torch_gather_eam_runner.py runs it);
+    like the JAX runner, gather refuses a box too small for the stride-2
+    checkerboard at 2 rc (the default synthetic table's rc 6 on 4x4x4)."""
     al = RunConfig(element="AL", ncells=(4, 4, 4), npress=1, ntemp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13 item 3"):
+    table = str(tmp_path / "al38.eam.alloy")
+    eam_gen.write_setfl(table, rc=3.8)
+    s = runner.setup_run(al, setfl=table, device="cpu")
+    assert (s.engine, s.style, s.cellcfg.stride) == ("gather", "eam", 2)
+    with pytest.raises(ValueError, match="too small"):
         runner.setup_run(al, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13 item 3"):
+    with pytest.raises(ValueError, match="too small"):
         TP.melting_pipeline(al, device="cpu")
     with pytest.raises(ValueError, match="HMC"):
         runner.setup_run(RunConfig(**dict(_KW, phmc=0.1)), engine="cellmc",
