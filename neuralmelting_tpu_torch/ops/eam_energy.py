@@ -87,6 +87,16 @@ def total_energy_virial(pot, pos, box, nl: NeighborList):
     return pe, 0.5 * torch.where(valid, w, 0.0).sum((-2, -1))
 
 
+def virial_scale(pot, pos, box, nl: NeighborList):
+    """(R,) summed magnitudes 0.5 sum |w_ij| of the virial's pair terms:
+    the scale of its f32 rounding. At low pressure the virial is a small
+    difference of large terms, so two summation orders agree to this
+    scale, not to the virial's own value."""
+    r, valid, _, _, _, _, phi_der, _, emb = _pair_terms(pot, pos, box, nl)
+    return 0.5 * torch.where(valid, r * (phi_der + emb), 0.0).abs().sum(
+        (-2, -1))
+
+
 def forces(pot, pos, box, nl: NeighborList):
     """(R, N, 3) forces; densities recomputed from scratch."""
     r, valid, dx, dy, dz, _, phi_der, _, emb = _pair_terms(pot, pos, box,
