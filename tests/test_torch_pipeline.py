@@ -3,7 +3,9 @@
 (a) In a fresh interpreter: import every module of neuralmelting_tpu_torch,
     run its CPU pipeline at a tiny LJ config and one EAM chunk on each
     engine, a short
-    serial chain with its golden-file writers and a P1 plain variant;
+    serial chain with its golden-file writers, a P1 plain variant, a
+    sweep of the loop-based CPU reference (refimpl/cpu_ref.py) and the
+    long-rc run's configuration (longrc_run.py);
     jax, flax, optax and every module of the JAX package
     neuralmelting_tpu must stay out of sys.modules.
 (b) The entry points: unported engines raise naming their ROADMAP item,
@@ -58,6 +60,16 @@ golden.write_files(tempfile.mkdtemp(), recs, frames)
 assert int(state.ntp) == 0 and recs.sweep.tolist() == [1], recs
 a, b = probe.inputs("cpu")
 assert probe.probe_plain("pair_div", a, b).isfinite().all()
+from neuralmelting_tpu_torch import longrc_run
+from neuralmelting_tpu_torch.models.lattice import make_supercell
+from neuralmelting_tpu_torch.ops import jrandom
+from neuralmelting_tpu_torch.refimpl import cpu_ref
+pos, box = make_supercell("fcc", 2.0 ** (2 / 3), 2)
+ref = cpu_ref.init_ref_state(pos, box, jrandom.key(11), 0.5, 1.0, 0.1, 0.01,
+                             0.005)
+ref, rrecs = cpu_ref.run_records(ref, 1, 1, 1.0, 1.0, 0.96875, 0.03125)
+assert ref.sweep == 1 and rrecs[0][3] + rrecs[0][5] == 32, rrecs
+assert longrc_run.make_cfg(fast=True).ncells == (7, 7, 7)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "neuralmelting_tpu"))
