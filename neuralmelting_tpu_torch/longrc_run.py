@@ -51,19 +51,18 @@ def write_table(directory: str) -> str:
     return path
 
 
-def run(fast: bool = False, device="cuda", setfl=None,
-        nchunks=None) -> dict:
+def run(fast: bool = False, device="cuda", setfl=None) -> dict:
     """The record of ``scripts/longrc_run.py`` on the port's cellmc
     engine; ``setfl`` defaults to the rc 6.3 table in a temp directory."""
     dev = runner.resolve_device(device)
     if setfl is None:
         with tempfile.TemporaryDirectory(prefix="nm_longrc_") as d:
-            return run(fast, dev, write_table(d), nchunks)
+            return run(fast, dev, write_table(d))
     cfg = make_cfg(fast)
     setup = runner.setup_run(cfg, setfl=setfl, engine="cellmc", device=dev)
     pe0 = float(torch.mean(setup.states.pe)) / setup.natoms
     tried0 = int(setup.moves_tried)
-    nchunks = nchunks or (1 if fast else 3)
+    nchunks = 1 if fast else 3
     diag_any, pe_trace, kcaps = 0, [], []
     t0 = runner.timed(dev)
     for _ in range(nchunks):

@@ -119,11 +119,9 @@ def test_rho_pe_virial(case):
     jpe, jvir = (np.asarray(a) for a in _jv(JEE.total_energy_virial, case))
     # summed term magnitudes: the embedding and pair energies, the pair
     # virials
-    r, valid, _, _, _, phi, phi_der, f_i, emb = EE._pair_terms(tp, pos, box,
-                                                               tl)
+    _, _, _, _, _, phi, _, f_i, _ = EE._pair_terms(tp, pos, box, tl)
     mag_e = f_i.abs().sum(-1) + 0.5 * phi.abs().sum((-2, -1))
-    mag_w = 0.5 * torch.where(valid, r * (phi_der + emb), 0.0).abs().sum(
-        (-2, -1))
+    mag_w = EE.virial_scale(tp, pos, box, tl)
     assert (np.abs(pe.numpy() - jpe) <= 1e-5 * mag_e.numpy()).all()
     assert (np.abs(vir.numpy() - jvir) <= 1e-5 * mag_w.numpy()).all()
     assert (pe.numpy() / pos.shape[1] < -2.5).all()
