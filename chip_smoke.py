@@ -1604,14 +1604,6 @@ EAM_GATHER_SMALL = dict(name="egsmall", element="AL", ncells=(4, 4, 4),
                         dpos0=0.1, dvol0=0.01)
 
 
-def eam_virial_scale(setup):
-    """(R,) summed magnitudes 0.5 sum |w_ij| of the virial's pair terms
-    at ``setup``'s state: EAM's virial nearly cancels at low pressure, so
-    it is held to them, as tests/test_torch_gather_eam_ops.py holds it."""
-    st = setup.states
-    return EE.virial_scale(setup.pot, st.pos, st.box, setup.nls)
-
-
 def rho_err(a, b):
     """Largest |a - b| of two density caches over the largest density."""
     return float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
@@ -1705,8 +1697,11 @@ def phase_eam_gather_small(name, table):
           "[eam-gather-small] graphs against eager: keys, frames or rho "
           "differ")
     b = gather_chunk(cfg, "cpu", setfl=table)
-    err = hold_chunk(a, b, "eam-gather-small",
-                     scale={"virial": eam_virial_scale(b[0])})
+    # EAM's virial nearly cancels at low pressure: it is held to its
+    # summed term magnitudes, as the CPU tests hold it
+    bs = b[0].states
+    err = hold_chunk(a, b, "eam-gather-small", scale={
+        "virial": EE.virial_scale(b[0].pot, bs.pos, bs.box, b[0].nls)})
     err["rho"] = rho_err(a[0].aux, b[0].aux)
     st = a[0].states
     check(torch.equal(a[0].aux, EE.rho_sums(a[0].pot, st.pos, st.box,
