@@ -297,6 +297,7 @@ import numpy as np
 import torch
 
 from neuralmelting_tpu_torch import bench as BENCH
+from neuralmelting_tpu_torch import classifier_spread as CSPREAD
 from neuralmelting_tpu_torch import coexist as CX
 from neuralmelting_tpu_torch import coexist_run as COEXIST_RUN
 from neuralmelting_tpu_torch import golden as GOLD
@@ -309,7 +310,7 @@ from neuralmelting_tpu_torch.cli import parse as CLI_PARSE
 from neuralmelting_tpu_torch.cli import post as CLI_POST
 from neuralmelting_tpu_torch.cli import rdf as CLI_RDF
 from neuralmelting_tpu_torch.cli import remcmc as CLI_REMCMC
-from neuralmelting_tpu_torch.config import RunConfig, grids
+from neuralmelting_tpu_torch.config import RunConfig
 from neuralmelting_tpu_torch.features import rdf as RDF
 from neuralmelting_tpu_torch.io import native, thermo, traj
 from neuralmelting_tpu_torch.models import eam as eam_mod
@@ -2090,44 +2091,6 @@ def launches_of(keys):
     return {k: {**CK.LAUNCHES, **CE.LAUNCHES}[k] for k in keys}
 
 
-def northstar_trainings(state, cfg, samp_chunks, seeds):
-    """T_m(P*=1) of the north star's classifier trained from each
-    initial-weight seed on the features a run saved in ``state`` (its
-    recipe: tanh scaler, CNN, extreme-T labels of band ntemp // 8, 400
-    epochs), with cuDNN's deterministic algorithms, so that the list
-    repeats on one tree: the north star's one training is not repeatable
-    on the card, and its T_m depends on the initial weights (ROADMAP
-    C11)."""
-    _, temp = grids(cfg)
-    npress, ntemp = cfg.npress, len(temp)
-    g = []
-    for i in range(samp_chunks):
-        with np.load(os.path.join(state, f"feat_{i:03d}.npz")) as z:
-            g.append(z["g"])
-    x = get_scaler("tanh").fit_transform(torch.as_tensor(
-        np.mean(g, axis=0), dtype=torch.float32, device=DEV))
-    mask, labels = extreme_t_labels(ntemp, max(1, ntemp // 8), device=DEV)
-    old = (torch.backends.cudnn.deterministic,
-           torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
-    out = []
-    try:
-        for seed in seeds:
-            net = PhaseCNN(x.shape[1]).to(DEV)
-            init_params(net, torch.Generator().manual_seed(seed))
-            fit = train_classifier(net, x, mask.repeat(npress),
-                                   labels.repeat(npress), epochs=NS.EPOCHS,
-                                   lr=2e-3)
-            tm, _ = melting_curve(temp, fit.probs.cpu().numpy().reshape(
-                npress, ntemp))
-            out.append(float(tm[0]))
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
-            = old
-    return out
-
-
 def phase_northstar(name):
     """python -m neuralmelting_tpu_torch.northstar at full scale: the
     heating leg (32x32 x 4096 LJ atoms, 600 + 400 sweeps), then --cool at
@@ -2172,10 +2135,11 @@ def phase_northstar(name):
     check(res["pass_2pct"], f"[northstar] T_m(P*=1)={res['tm_p1']} misses "
           "the 2% gate")
     # the spread of the classifier's T_m over its initial weights, on this
-    # run's features: repeatable (seeded, cuDNN deterministic), printed,
-    # not gated (ROADMAP C11: its mean lies ~2.4% above 0.78)
-    tms = northstar_trainings(os.path.join(tmp, "st"), NS.make_cfg(),
-                              NS.schedule()["samp_chunks"], range(16))
+    # run's features (python -m neuralmelting_tpu_torch.classifier_spread):
+    # repeatable, printed, not gated (ROADMAP C11: its mean lies ~2.4%
+    # above 0.78)
+    tms = CSPREAD.trainings(CSPREAD.load_features(os.path.join(tmp, "st")),
+                            NS.make_cfg(), range(16), DEV)
     mean, sd = float(np.mean(tms)), float(np.std(tms, ddof=1))
     log(f"[northstar] T_m(P*=1) over 16 seeded trainings (seeds 0-15, "
         f"cuDNN deterministic) on the run's saved features: "
