@@ -25,6 +25,14 @@ from neuralmelting_tpu_torch.neural.train import (extreme_t_labels,
                                                   train_classifier)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def state(tmp_path_factory):
     d = tmp_path_factory.mktemp("ns")

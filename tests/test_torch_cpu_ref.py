@@ -17,6 +17,7 @@ adaptation, HMC), from the same seeds.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from neuralmelting_tpu.refimpl import cpu_ref as JREF
 from neuralmelting_tpu_torch import golden
@@ -35,6 +36,14 @@ CASES = {
 }
 COUNTERS = ("nap", "ntp", "nav", "ntv", "nah", "nth", "sweep")
 HMC_ATOL = 1e-7
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _moves(c):
