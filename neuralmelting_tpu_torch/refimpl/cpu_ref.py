@@ -224,7 +224,7 @@ def adapt(st: RefState, targets=(0.5, 0.5, 0.5), factor=1.0625):
 def run_records(st: RefState, nrecords, mod, kb, p2e, ppos, pvol, eps=1.0,
                 sigma=1.0, rc=2.5, nstps=8, mass=1.0, trace=None):
     """``nrecords`` blocks of ``mod`` sweeps with an ``adapt`` after each,
-    as the serial driver runs them (tests/test_golden.py's schedule).
+    as ``sampler/driver.py`` runs them (tests/test_golden.py's schedule).
     Returns (state, records): per record (pe, vol, nap, ntp, nav, ntv,
     nah, nth), taken before the adaptation resets the counters."""
     recs = []
