@@ -137,11 +137,8 @@ Phases, in order (any failed check exits non-zero):
   8c. northstar  — python -m neuralmelting_tpu_torch.northstar at full
                    scale (32x32 (P, T) x 4096 LJ atoms, 6 eq + 4 samp
                    chunks of 5 records x 20 sweeps): diag 0, 32 resolved
-                   rows, T_m(P*=1) within 2% of 0.78; then T_m(P*=1) of
-                   16 classifier trainings (seeds 0-15, cuDNN
-                   deterministic) on the run's saved features, their mean
-                   and sd printed beside the JAX package's single
-                   training, not gated (ROADMAP C11); points/hour, the
+                   rows, T_m(P*=1) of its one classifier training
+                   within 2% of 0.78 (ROADMAP C11); points/hour, the
                    breakdown and T_m(P) beside the JAX package's
                    northstar_result.json; then C7 on the card: g(r) pair
                    counts of the compiled bin pass equal its eager
@@ -297,7 +294,6 @@ import numpy as np
 import torch
 
 from neuralmelting_tpu_torch import bench as BENCH
-from neuralmelting_tpu_torch import classifier_spread as CSPREAD
 from neuralmelting_tpu_torch import coexist as CX
 from neuralmelting_tpu_torch import coexist_run as COEXIST_RUN
 from neuralmelting_tpu_torch import golden as GOLD
@@ -1309,9 +1305,12 @@ def compare_eam_sweep(geom, slabs, ids, count, params, scal, series, rt,
     check(ntry_eq, f"[{tag}] eam n_try differs")
     check(bad == 0, f"[{tag}] eam pe identity fails on {bad} replicas")
     check(dfresh <= 1e-4, f"[{tag}] eam density slab drifted: {dfresh}")
-    # B3 never moves an atom out of its cell. The binning may place an
-    # atom an ulp outside its cell's f32 bounds (a cell edge); such an
-    # atom, left where it was, is not one B3 moved out
+    # B3 never moves an atom out of its cell. The binning takes the cell
+    # as int(y / w), as the JAX package does, and B3 tests tab*w <= y <
+    # tab*w + w: at a cell edge y / w can round onto the next integer while
+    # tab*w rounds past y, so an atom may lie an ulp or two of the box
+    # outside its cell's f32 bounds. Such an atom, left where it was, is
+    # not one B3 moved out; anything farther out is a binning fault
     wv = params[:, 2:5]
     tabs = torch.as_tensor(CG.geom_tables(geom), device=DEV)
     edge = torch.zeros_like(valid)
@@ -1327,11 +1326,14 @@ def compare_eam_sweep(geom, slabs, ids, count, params, scal, series, rt,
             gap = torch.maximum(lo - slabs[a], slabs[a] - hi)
             beyond = max(beyond, float(gap[out].max()))
     moved = (ks[0] != slabs[0]) | (ks[1] != slabs[1]) | (ks[2] != slabs[2])
+    ulps = 8.0 * torch.finfo(torch.float32).eps * float(params[:, 5:8].max())
     if bool(edge.any()):
         log(f"[{tag}] {int(edge.sum())} atoms binned outside their cell's "
             f"f32 bounds (a cell edge; the farthest {beyond:.3e} A "
-            f"beyond), {int((edge & moved).sum())} of them moved by the "
-            "sweep")
+            f"beyond, limit {ulps:.3e}), {int((edge & moved).sum())} of "
+            "them moved by the sweep")
+    check(beyond <= ulps, f"[{tag}] an atom binned {beyond} A outside its "
+          f"cell (limit {ulps}, 8 f32 ulps of the box)")
     check(not bool((left & (moved | ~edge)).any()),
           f"[{tag}] an atom left its cell")
     if exact:
@@ -2134,20 +2136,6 @@ def phase_northstar(name):
           f"[northstar] {res['heat_resolved_rows']} resolved rows, not 32")
     check(res["pass_2pct"], f"[northstar] T_m(P*=1)={res['tm_p1']} misses "
           "the 2% gate")
-    # the spread of the classifier's T_m over its initial weights, on this
-    # run's features (python -m neuralmelting_tpu_torch.classifier_spread):
-    # repeatable, printed, not gated (ROADMAP C11: its mean lies ~2.4%
-    # above 0.78)
-    tms = CSPREAD.trainings(CSPREAD.load_features(os.path.join(tmp, "st")),
-                            NS.make_cfg(), range(16), DEV)
-    mean, sd = float(np.mean(tms)), float(np.std(tms, ddof=1))
-    log(f"[northstar] T_m(P*=1) over 16 seeded trainings (seeds 0-15, "
-        f"cuDNN deterministic) on the run's saved features: "
-        + " ".join(f"{v:.4f}" for v in tms)
-        + f"; mean {mean:.4f}, sd {sd:.4f} (sd of the mean "
-        f"{sd / math.sqrt(len(tms)):.4f}), |mean/0.78 - 1| "
-        f"{abs(mean / NS.ANCHOR - 1.0):.4f}; the JAX package's full-scale "
-        f"single training {jax_ref['tm_p1']:.4f} (northstar_result.json)")
     check(all(v > 0 for v in launches.values()),
           f"[northstar] a kernel never launched: {launches}")
     rdf_variants(name)

@@ -3,16 +3,17 @@
     python -m neuralmelting_tpu_torch.classifier_spread STATE
         [--seeds LO:HI] [--fast] [--device cuda|cpu]
 
-Trains the north star's classifier (``northstar.py``: tanh scaler, CNN,
-extreme-T labels of band ntemp // 8, 400 epochs) once from each
+Trains the north star's classifier (``northstar.classify``: tanh scaler,
+CNN, extreme-T labels of band ntemp // 8, 400 epochs) once from each
 initial-weight seed on the features a north-star run saved in ``STATE``
-(``feat_NNN.npz``, one a sampled chunk) and prints T_m(P*=1) of each, their
-mean and sd as one JSON line. On the card it trains with cuDNN's
-deterministic algorithms, so the list repeats on one tree: the north
-star's own single training (seed 3, default algorithms) does not, and its
-T_m depends on the initial weights (ROADMAP C11). ``--fast`` reads a
-``--fast`` run's features. Runs on the card unless given ``--device
-cpu``; without a GPU the default raises.
+(``northstar.saved_features``: the mean over its sampled chunks'
+``feat_NNN.npz``) and prints T_m(P*=1) of each, their mean and sd as one
+JSON line. On the card it trains with cuDNN's deterministic algorithms,
+so the list repeats on one tree: the north star's own single training
+(seed 3, default algorithms) does not, and its T_m depends on the
+initial weights (ROADMAP C11). ``--fast`` reads a ``--fast`` run's
+features. Runs on the card unless given ``--device cpu``; without a GPU
+the default raises.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import os
 
 import numpy as np
 import torch
@@ -28,25 +28,6 @@ import torch
 from neuralmelting_tpu_torch import northstar as NS
 from neuralmelting_tpu_torch import runner
 from neuralmelting_tpu_torch.config import grids
-from neuralmelting_tpu_torch.neural.melt import melting_curve
-from neuralmelting_tpu_torch.neural.models import PhaseCNN, init_params
-from neuralmelting_tpu_torch.neural.scalers import get_scaler
-from neuralmelting_tpu_torch.neural.train import (extreme_t_labels,
-                                                  train_classifier)
-
-
-def load_features(state: str) -> np.ndarray:
-    """(R, NBINS) slot-ordered g(r), the mean over the run's sampled
-    chunks, as ``northstar.run`` trains on it."""
-    names = sorted(f for f in os.listdir(state)
-                   if f.startswith("feat_") and f.endswith(".npz"))
-    if not names:
-        raise FileNotFoundError(f"no feat_NNN.npz in {state}")
-    g = []
-    for f in names:
-        with np.load(os.path.join(state, f)) as z:
-            g.append(z["g"])
-    return np.mean(g, axis=0)
 
 
 @contextlib.contextmanager
@@ -67,22 +48,10 @@ def trainings(g, cfg, seeds, device) -> list:
     """T_m(P*=1) of the classifier trained from each seed on features g
     (R, NBINS) of config ``cfg``'s (P, T) grid."""
     _, temp = grids(cfg)
-    npress, ntemp = cfg.npress, len(temp)
-    x = get_scaler("tanh").fit_transform(
-        torch.as_tensor(g, dtype=torch.float32, device=device))
-    mask, labels = extreme_t_labels(ntemp, max(1, ntemp // 8), device=device)
-    out = []
+    x = torch.as_tensor(g, dtype=torch.float32, device=device)
     with deterministic_cudnn():
-        for seed in seeds:
-            net = PhaseCNN(x.shape[1]).to(device)
-            init_params(net, torch.Generator().manual_seed(seed))
-            fit = train_classifier(net, x, mask.repeat(npress),
-                                   labels.repeat(npress), epochs=NS.EPOCHS,
-                                   lr=2e-3)
-            tm, _ = melting_curve(temp, fit.probs.cpu().numpy().reshape(
-                npress, ntemp))
-            out.append(float(tm[0]))
-    return out
+        return [float(NS.classify(temp, x, cfg.npress, len(temp),
+                                  seed=seed)[0][0]) for seed in seeds]
 
 
 def main(argv=None) -> dict:
@@ -97,8 +66,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     lo, hi = (int(v) for v in args.seeds.split(":"))
     dev = runner.resolve_device(args.device)
-    tms = trainings(load_features(args.state), NS.make_cfg(args.fast),
-                    range(lo, hi), dev)
+    g, _ = NS.saved_features(args.state,
+                             NS.schedule(args.fast)["samp_chunks"])
+    tms = trainings(g, NS.make_cfg(args.fast), range(lo, hi), dev)
     out = {"seeds": [lo, hi], "tm_p1": tms, "mean": float(np.mean(tms)),
            "sd": float(np.std(tms, ddof=1)) if len(tms) > 1 else 0.0,
            "anchor": NS.ANCHOR}

@@ -172,25 +172,46 @@ def featurize_chunk(frames, hist, rmax: float):
     return g_slot.mean(axis=0), b_slot.mean(axis=0)
 
 
+def saved_features(state: str, nchunks: int):
+    """The mean g(r) (R, NBINS) and box (R, 3) over the ``nchunks``
+    sampled chunks' ``feat_NNN.npz`` in ``state``, as numpy."""
+    gs, bs = [], []
+    for i in range(nchunks):
+        with np.load(os.path.join(state, f"feat_{i:03d}.npz")) as z:
+            gs.append(z["g"])
+            bs.append(z["box"])
+    return np.mean(gs, axis=0), np.mean(bs, axis=0)
+
+
+def classify(temp, feats, npress, ntemp, epochs: int = EPOCHS,
+             seed: int = 3):
+    """The classifier (tanh scaler, CNN from initial-weight ``seed``,
+    extreme-T labels of band ntemp // 8) trained on feats (R, NBINS), and
+    the logistic T_m fit. Returns (tms, widths, probs (npress, ntemp),
+    (net, params, fitted scaler))."""
+    sc = get_scaler("tanh")
+    x = sc.fit_transform(feats)
+    band = max(1, ntemp // 8)
+    mask1, labels1 = extreme_t_labels(ntemp, band, device=feats.device)
+    net = PhaseCNN(feats.shape[1]).to(feats.device)
+    init_params(net, torch.Generator().manual_seed(seed))
+    res = train_classifier(net, x, mask1.repeat(npress),
+                           labels1.repeat(npress), epochs=epochs, lr=2e-3)
+    probs = res.probs.cpu().numpy().reshape(npress, ntemp)
+    tms, widths = melting_curve(temp, probs)
+    return tms, widths, probs, (net, res.params, sc)
+
+
 def train_and_fit(setup, feats, box_mean, npress, ntemp, natoms, rmax,
                   epochs: int = EPOCHS):
     """Classifier (extreme-T labels) and logistic T_m fit. Returns (tms,
     widths, resolved, (q, sq), (net, params, fitted scaler))."""
-    dev = feats.device
     q, sq = structure_factor(feats, box_mean, natoms, rmax)
-    sc = get_scaler("tanh")
-    x = sc.fit_transform(feats)
-    band = max(1, ntemp // 8)
-    mask1, labels1 = extreme_t_labels(ntemp, band, device=dev)
-    net = PhaseCNN(feats.shape[1]).to(dev)
-    init_params(net, torch.Generator().manual_seed(3))
-    res = train_classifier(net, x, mask1.repeat(npress),
-                           labels1.repeat(npress), epochs=epochs, lr=2e-3)
-    probs = res.probs.cpu().numpy().reshape(npress, ntemp)
-    tms, widths = melting_curve(setup.temp, probs)
+    tms, widths, probs, clf = classify(setup.temp, feats, npress, ntemp,
+                                       epochs)
     resolved = crossing_resolved(setup.temp, probs, tms)
     return (tms, widths, resolved, (q.cpu().numpy(), sq.cpu().numpy()),
-            (net, res.params, sc))
+            clf)
 
 
 def apply_and_fit(setup, clf, feats, npress, ntemp):
@@ -385,14 +406,9 @@ def run(cfg: RunConfig, state: str, out: str, eq_chunks: int,
 
     # --- classifier (extreme-T labels) and T_m fit --------------------
     t0 = runner.timed(dev)
-    gs, bs = [], []
-    for i in range(samp_chunks):
-        with np.load(os.path.join(state, f"feat_{i:03d}.npz")) as z:
-            gs.append(z["g"])
-            bs.append(z["box"])
-    feats = torch.as_tensor(np.mean(gs, axis=0), dtype=torch.float32,
-                            device=dev)                      # (R, NBINS)
-    box_mean = torch.as_tensor(np.mean(bs, axis=0), device=dev)
+    g, box = saved_features(state, samp_chunks)
+    feats = torch.as_tensor(g, dtype=torch.float32, device=dev)  # (R, NBINS)
+    box_mean = torch.as_tensor(box, device=dev)
     tms, _widths, resolved_h, (q, sq), clf = train_and_fit(
         setup, feats, box_mean, npress, ntemp, natoms, rmax)
     np.savez(os.path.join(state, "sq.npz"), q=q, sq=sq)

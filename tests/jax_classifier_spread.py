@@ -32,7 +32,6 @@ from neuralmelting_tpu.neural.models import PhaseCNN  # noqa: E402
 from neuralmelting_tpu.neural.scalers import get_scaler  # noqa: E402
 from neuralmelting_tpu.neural.train import (extreme_t_labels,  # noqa: E402
                                             train_classifier)
-from neuralmelting_tpu_torch import classifier_spread  # noqa: E402
 from neuralmelting_tpu_torch import northstar  # noqa: E402
 from neuralmelting_tpu_torch.config import grids  # noqa: E402
 
@@ -44,8 +43,9 @@ def main(argv):
     cfg = northstar.make_cfg()
     _, temp = grids(cfg)
     npress, ntemp = cfg.npress, len(temp)
-    x = get_scaler("tanh").fit_transform(jnp.asarray(
-        classifier_spread.load_features(state), jnp.float32))
+    g, _ = northstar.saved_features(state,
+                                    northstar.schedule()["samp_chunks"])
+    x = get_scaler("tanh").fit_transform(jnp.asarray(g, jnp.float32))
     mask, labels = extreme_t_labels(ntemp, max(1, ntemp // 8))
     tms = []
     for k in range(lo, hi):

@@ -4,12 +4,13 @@ initial weights, on the CPU at the ``--fast`` grid (4 x 8 slots).
 Synthetic solid-like and liquid-like g(r) rows with a crossing inside the
 grid, saved as a run saves them (two ``feat_NNN.npz``): the features are
 the mean over the files; each seed's training gives a T_m inside the grid,
-the list repeats, and a seed's training equals a training from that seed
-done by hand as ``northstar.train_and_fit`` does it; the CLI prints the
-list with its mean and sd; a state without features raises.
+the list repeats, and seed 3's training equals the north star's own
+(``northstar.train_and_fit``); the CLI prints the list with its mean and
+sd; a state without features raises.
 """
 
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,11 +19,6 @@ import torch
 from neuralmelting_tpu_torch import classifier_spread as CS
 from neuralmelting_tpu_torch import northstar as NS
 from neuralmelting_tpu_torch.config import grids
-from neuralmelting_tpu_torch.neural.melt import melting_curve
-from neuralmelting_tpu_torch.neural.models import PhaseCNN, init_params
-from neuralmelting_tpu_torch.neural.scalers import get_scaler
-from neuralmelting_tpu_torch.neural.train import (extreme_t_labels,
-                                                  train_classifier)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -43,6 +39,7 @@ def state(tmp_path_factory):
         -((r - 1.6) ** 2) / 0.004)
     liquid = 0.8 * np.exp(-((r - 1.15) ** 2) / 0.05)
     rng = np.random.default_rng(0)
+    saved = []
     for i in range(2):
         g = []
         for p in range(cfg.npress):
@@ -50,28 +47,25 @@ def state(tmp_path_factory):
                 frac = 1 / (1 + np.exp(-(t - (0.9 + 0.05 * p)) / 0.05))
                 g.append((1 - frac) * solid + frac * liquid
                          + 0.02 * rng.normal(size=NS.NBINS))
-        np.savez(d / f"feat_{i:03d}.npz", g=np.asarray(g, np.float32),
+        saved.append(np.asarray(g, np.float32))
+        np.savez(d / f"feat_{i:03d}.npz", g=saved[-1],
                  box=np.ones((len(g), 3)))
-    return str(d), cfg, temp
+    return str(d), cfg, temp, np.mean(saved, axis=0)
 
 
 def test_trainings_repeat_and_match_the_recipe(state):
-    path, cfg, temp = state
-    g = CS.load_features(path)
+    path, cfg, temp, mean = state
+    g, box = NS.saved_features(path, NS.schedule(fast=True)["samp_chunks"])
     assert g.shape == (cfg.npress * len(temp), NS.NBINS)
-    tms = CS.trainings(g, cfg, range(2), "cpu")
-    assert tms == CS.trainings(g, cfg, range(2), "cpu")
+    assert np.array_equal(g, mean)
+    tms = CS.trainings(g, cfg, range(2, 4), "cpu")
+    assert tms == CS.trainings(g, cfg, range(2, 4), "cpu")
     assert all(temp[0] < v < temp[-1] for v in tms)
-    x = get_scaler("tanh").fit_transform(torch.as_tensor(g,
-                                                         dtype=torch.float32))
-    mask, labels = extreme_t_labels(len(temp), 1)
-    net = PhaseCNN(NS.NBINS)
-    init_params(net, torch.Generator().manual_seed(1))
-    fit = train_classifier(net, x, mask.repeat(cfg.npress),
-                           labels.repeat(cfg.npress), epochs=NS.EPOCHS,
-                           lr=2e-3)
-    tm, _ = melting_curve(temp, fit.probs.numpy().reshape(cfg.npress, -1))
-    assert float(tm[0]) == tms[1]
+    own = NS.train_and_fit(SimpleNamespace(temp=temp),
+                           torch.as_tensor(g, dtype=torch.float32),
+                           torch.as_tensor(box), cfg.npress, len(temp),
+                           256, 3.0)[0]
+    assert float(own[0]) == tms[1]
 
 
 def test_cli_prints_the_spread(state, capsys, tmp_path):
@@ -81,4 +75,4 @@ def test_cli_prints_the_spread(state, capsys, tmp_path):
     assert out["mean"] == pytest.approx(np.mean(out["tm_p1"]))
     assert out["sd"] == pytest.approx(np.std(out["tm_p1"], ddof=1))
     with pytest.raises(FileNotFoundError):
-        CS.load_features(str(tmp_path))
+        CS.main([str(tmp_path), "--fast", "--device", "cpu"])
