@@ -217,17 +217,10 @@ def time_ms(fn, min_ms=10.0):
         n = max(2 * n, int(math.ceil(n * 1.2 * min_ms / max(total, 1e-3))))
 
 
-def device_ms(fn, calls, match):
-    """Mean device time (ms) of the kernels whose name contains ``match``
-    over ``calls`` calls of ``fn``, from torch.profiler: the kernel's own
-    time, without the host's time to issue it. The mean is over the
-    launches the session recorded. torch.profiler drops a record now and
-    then, and many more once the process has profiled CUDA-graph
-    replays (``profiler_drops``): a session that recorded fewer launches
-    than calls is reported on stderr."""
+def _profiled_ms(fn, calls, match):
+    """(total device ms, launches) of the kernels whose name contains
+    ``match`` in one torch.profiler session over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -239,12 +232,54 @@ def device_ms(fn, calls, match):
             t = getattr(ev, "self_device_time_total", None)
             total += ev.self_cuda_time_total if t is None else t
             count += ev.count
-    if count < calls:
-        print(f"device_ms: the profiler recorded {count} launches of "
-              f"{match!r} in {calls} calls", file=sys.stderr, flush=True)
-    if count == 0 or total <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {match!r}")
-    return total / count / 1e3
+    return total / 1e3, count
+
+
+def _event_ms(fn, calls):
+    """Mean ms of a call between two CUDA events recorded around it, calls
+    issued back to back: the device time of a call that outlasts its
+    issue, the issue interval of one that does not."""
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    for e0, e1 in evs:
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in evs) / calls
+
+
+# (match, calls) of every device_ms that no profiler session could time
+EVENT_FALLBACKS = []
+
+
+def device_ms(fn, calls, match, sessions=3):
+    """Mean device time (ms) of the kernels whose name contains ``match``
+    over ``calls`` calls of ``fn``, from torch.profiler: the kernel's own
+    time, without the host's time to issue it. The mean is over the
+    launches the session recorded. torch.profiler drops a record now and
+    then, and many more once the process has profiled CUDA-graph
+    replays (``profiler_drops``); on the card it has also recorded no
+    launch at all in a session. A session that recorded fewer launches
+    than calls is reported on stderr, one that recorded none is run
+    again, up to ``sessions`` in all, and if none recorded any the time
+    is taken with CUDA events around each call (``_event_ms``), reported
+    on stderr and in ``EVENT_FALLBACKS``."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        total, count = _profiled_ms(fn, calls, match)
+        if count < calls:
+            print(f"device_ms: the profiler recorded {count} launches of "
+                  f"{match!r} in {calls} calls", file=sys.stderr, flush=True)
+        if count > 0 and total > 0:
+            return total / count
+    ms = _event_ms(fn, calls)
+    EVENT_FALLBACKS.append((match, calls))
+    print(f"device_ms: no profiler session of {sessions} saw {match!r}; "
+          f"{ms:.4f} ms a call from CUDA events around each of {calls} "
+          f"calls", file=sys.stderr, flush=True)
+    return ms
 
 
 def issue_ceiling(variant):
