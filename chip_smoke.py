@@ -216,6 +216,23 @@ Phases, in order (any failed check exits non-zero):
   14. golden-hmc  — tests/test_golden.py's HMC case (32 atoms, ppos 0.7,
                    pvol 0.05, seed 9) on the card against the port's CPU
                    run: acceptance ratios equal, positions within 1e-2;
+  14a. sharded    — multi-process cellmc (parallel/cellmc_sharded.py): two
+                   ranks, spawned processes sharing the card over gloo,
+                   each on its shard of the bench's LJ configuration
+                   (4096 atoms, R=1024, 512 a rank) and of its EAM one
+                   (4096 Al atoms, R=256): each rank's first B2/B3 sweep
+                   and B1/B4 total at its own shard-folded seeds against
+                   their plain versions, then two chunks of run_sampling
+                   (B1-B4 counters zeroed before and read after, each
+                   > 0): diag 0 on every rank (SHIFT_DESYNC clear),
+                   records gathered whole (nrec, R), hist rows
+                   permutations of 0..R-1, the record pe of replicas 0
+                   and R-1 against a brute-force total of the gathered
+                   positions (LJ 0.05 + 5e-4 |E|, EAM 0.02 + 1e-4 |E|);
+                   a rank that fails or passes SHARD_TIMEOUT fails the
+                   phase with its traceback, and neither may import jax
+                   or the JAX package; seconds a chunk and moves/s a rank
+                   beside the same chunk on this one process;
   15. probe       — every P1 variant against its plain version at REPS
                    passes, then the per-variant timing at the passes that
                    make a launch last >= 1 ms (python -m
@@ -265,7 +282,9 @@ chunk_kcap and chunk_ms, the time at the chunks' K, B4's also ms_virial,
 bound_ms_virial and chunk_ms_virial; B1-B4's entries carry launches_cli
 and launches_bench, their launches in the cli and bench phases, and
 launches_northstar (B1, B2), launches_coexist (B1-B4) and
-launches_sweep (B3, B4), their launches in those phases' main runs;
+launches_sweep (B3, B4), their launches in those phases' main runs,
+and launches_sharded, their launches on both ranks of the sharded
+phase's chunks;
 B3's and B4's entries carry launches_longrc (eam-longrc's longrc_run)
 and k72_* and k40_* fields: K, cells, replicas, kernel, plain and bound
 ms (B4 also with the virial) at the long-rc geometry (K=72) and at
@@ -540,12 +559,13 @@ def compare_total(geom, slabs, params, pot3, tag):
 
 
 def compare_sweep(geom, slabs, ids, count, params, pot3, rt, tag, exact,
-                  ncyc=1):
+                  ncyc=1, seed0=(4242, 17), sweep=3):
     """One sweep by the kernel and by the plain version from the same
-    slabs; returns the kernel's slabs and stats."""
+    slabs, at the threefry keys of ``seed0`` and ``sweep``; returns the
+    kernel's slabs and stats."""
     r = slabs[0].shape[0]
     ntiles = -(-r // rt)
-    seeds = SC.tile_seeds((4242, 17), 3, ntiles, DEV)
+    seeds = SC.tile_seeds(seed0, sweep, ntiles, DEV)
     ks = tuple(a.clone() for a in slabs)
     ps = tuple(a.clone() for a in slabs)
     e0, _ = energies(geom, slabs, params, pot3)
@@ -1272,14 +1292,15 @@ def compare_eam_total(geom, slabs, ids, params, scal, series, tag):
 
 
 def compare_eam_sweep(geom, slabs, ids, count, params, scal, series, rt,
-                      tag, exact, ncyc=1):
+                      tag, exact, ncyc=1, seed0=(4242, 17), sweep=3):
     """One B3 sweep by the kernel and by the plain version from the same
-    slabs and density slab; returns the kernel's slabs and the plain
-    version's CUDA-event ms."""
+    slabs and density slab, at the threefry keys of ``seed0`` and
+    ``sweep``; returns the kernel's slabs and the plain version's
+    CUDA-event ms."""
     r = slabs[0].shape[0]
     ones = torch.ones(r, device=DEV)
     st0, rho0 = CE.total(geom, slabs, params, scal, series, ones, False)
-    seeds = SC.tile_seeds((4242, 17), 3, -(-r // rt), DEV)
+    seeds = SC.tile_seeds(seed0, sweep, -(-r // rt), DEV)
     ks = tuple(a.clone() for a in slabs) + (rho0.clone(),)
     ps = tuple(a.clone() for a in slabs) + (rho0.clone(),)
     kst = CE.sweep(geom, ncyc, rt, ks, count, params, scal, series, seeds)
@@ -2913,6 +2934,201 @@ def phase_golden_hmc(name):
     check(dx <= 1e-2, f"[golden-hmc] positions differ by {dx}")
 
 
+# ---------------------------------------------------------------------------
+# multi-process: the cellmc engines per replica shard (parallel/mesh.py,
+# parallel/cellmc_sharded.py), two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2
+SHARD_TIMEOUT = 300         # seconds for both ranks, set-up included
+
+
+def brute_pe(style, pot, pos, box):
+    """O(N^2) minimum-image total energy of one configuration: LJ through
+    ops/energy.py, EAM from the Chebyshev series the kernels sample."""
+    if style == "pair":
+        return float(pair_energy_virial(pot, pos, box)[0])
+    d = min_image(pos[None, :, :] - pos[:, None, :], box)
+    u = (d * d).sum(-1)
+    n = pos.shape[0]
+    rc = float(np.float32(pot.rc))
+    mask = (u < rc * rc) & ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    phi = torch.where(mask, eam_cheb.cheb_eval(pot.c_phi, pot.u_lo,
+                                               pot.u_hi, u), 0.0)
+    rho = torch.where(mask, eam_cheb.cheb_eval(pot.c_rho, pot.u_lo,
+                                               pot.u_hi, u), 0.0).sum(-1)
+    q = torch.sqrt(torch.clamp(rho, 0.0, float(pot.rho_hi)))
+    f = eam_cheb.cheb_eval(pot.c_f, pot.q_lo,
+                           np.sqrt(np.float32(pot.rho_hi)), q)
+    return float(0.5 * phi.double().sum() + f.double().sum())
+
+
+def two_chunks(cfg, setfl, dev):
+    """set-up, one chunk, then a timed one: (setup, outputs of the timed
+    chunk, its seconds, its attempted moves, the first chunk's diag)."""
+    setup = runner.setup_run(cfg, setfl=setfl, engine="cellmc", device=dev)
+    setup, *_, d0 = runner.run_sampling(setup, write_files=False,
+                                        write_traj=False)
+    m0 = int(setup.moves_tried)
+    t = runner.timed(setup.device)
+    out = runner.run_sampling(setup, write_files=False, write_traj=False)
+    secs = runner.timed(setup.device) - t
+    return out[0], out[1:], secs, int(out[0].moves_tried) - m0, d0
+
+
+def sharded_style(style, rank, dev, table):
+    """One rank's share of the sharded phase for the bench's LJ or EAM
+    configuration: its first B2/B3 sweep and B1/B4 total at its own
+    shard-folded seeds against their plain versions, then two chunks of
+    run_sampling through the sharded runner."""
+    from neuralmelting_tpu_torch.parallel import mesh
+    cfg = BENCH.configs()["lj" if style == "pair" else "eam"]
+    setfl = table if style == "eam" else None
+    tag = f"sharded {style} rank {rank}"
+    setup = runner.setup_run(cfg, setfl=setfl, engine="cellmc", device=dev)
+    geom, r = setup.geom, setup.t_grid.shape[0]
+    rl = setup.states.temp.shape[0]
+    check(rl * SHARD_RANKS == r, f"[{tag}] shard of {rl} of {r} replicas")
+    params = SC.params_of(setup.states, geom, setup.us.kb)
+    # the chunk's first sweep's keys on this shard: seed word + rank
+    keys = dict(seed0=(cfg.seed, cfg.seed + 7 + rank),
+                sweep=int(setup.states.sweep[0]))
+    ncyc = SC.default_ncyc(geom)
+    if style == "pair":
+        pot3 = setup.pot.pot3(dev)
+        compare_total(geom, setup.slabs[:3], params, pot3, tag)
+        compare_sweep(geom, setup.slabs[:3], setup.slabs[3],
+                      setup.slab_count, params, pot3, SC.pick_rt(rl), tag,
+                      exact=False, ncyc=ncyc, **keys)
+    else:
+        scal, series, _ = CE.eam_pack(setup.pot, dev)
+        compare_eam_total(geom, setup.slabs[:3], setup.slabs[3], params,
+                          scal, series, tag)
+        compare_eam_sweep(geom, setup.slabs[:3], setup.slabs[3],
+                          setup.slab_count, params, scal, series,
+                          SC.pick_rt(rl), tag, exact=False, ncyc=ncyc,
+                          **keys)
+    del setup
+    CK.reset_launches()
+    CE.reset_launches()
+    setup, (recs, _, hist, xacc, diag), secs, moves, d0 = two_chunks(
+        cfg, setfl, dev)
+    launches = {**CK.LAUNCHES, **CE.LAUNCHES}
+    check(d0 == 0 and diag == 0, f"[{tag}] diag {d0}, {diag} (16 = "
+          "SHIFT_DESYNC)")
+    check(tuple(recs.pe.shape) == (cfg.nsmpl, r),
+          f"[{tag}] records {tuple(recs.pe.shape)}, not whole")
+    for row in hist.cpu().numpy():
+        check(sorted(row.tolist()) == list(range(r)),
+              f"[{tag}] a hist row is no permutation")
+    st = mesh.host_fetch(setup.states, r)            # a collective
+    errs = []
+    if rank == 0:
+        for rr in (0, r - 1):
+            want = brute_pe(style, setup.pot, st.pos[rr], st.box[rr])
+            got = float(st.pe[rr])
+            lim = (0.05 + 5e-4 * abs(want) if style == "pair"
+                   else 0.02 + 1e-4 * abs(want))
+            errs.append(abs(got - want))
+            check(abs(got - want) < lim, f"[{tag}] replica {rr}: record pe "
+                  f"{got} against brute force {want} (limit {lim})")
+    keep = ("sweep", "total") if style == "pair" else ("eam_sweep",
+                                                      "eam_total")
+    check(all(launches[k] > 0 for k in keep),
+          f"[{tag}] a kernel never launched: {launches}")
+    return dict(secs=secs, moves=moves, launches=launches, rl=rl, r=r,
+                pe_err=errs, xacc=xacc.tolist())
+
+
+def sharded_rank(rank, port, table, queue):
+    """A spawned rank: both styles over the process group; puts (rank,
+    result or the traceback) on ``queue``."""
+    import traceback
+    from neuralmelting_tpu_torch.parallel import mesh
+    try:
+        dev = mesh.rank_device("cuda", rank)
+        backend = mesh.init_multihost(f"127.0.0.1:{port}", SHARD_RANKS,
+                                      rank, device=dev)
+        try:
+            res = {s: sharded_style(s, rank, dev, table)
+                   for s in ("pair", "eam")}
+        finally:
+            mesh.shutdown()
+        res["backend"] = backend
+        res["foreign"] = sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "neuralmelting_tpu"))
+        queue.put((rank, res))
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_sharded(name, table):
+    import multiprocessing as mp
+    import queue as queue_mod
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(i, port, table, q))
+             for i in range(SHARD_RANKS)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < SHARD_RANKS:
+            left = SHARD_TIMEOUT - (time.perf_counter() - t)
+            try:
+                rank, out = q.get(timeout=max(left, 1.0))
+            except queue_mod.Empty:
+                late = sorted(set(range(SHARD_RANKS)) - set(res))
+                raise CheckFailed(f"[sharded] ranks {late} passed "
+                                  f"{SHARD_TIMEOUT} s") from None
+            check(isinstance(out, dict), f"[sharded] rank {rank} failed:\n"
+                  f"{out}")
+            res[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    ranks_s = time.perf_counter() - t
+    for k in ("sweep", "total", "eam_sweep", "eam_total"):
+        KERNELS[k]["launches_sharded"] = sum(
+            v[st]["launches"][k] for v in res.values()
+            for st in ("pair", "eam"))
+    for rank, out in res.items():
+        check(not out["foreign"], f"[sharded] rank {rank} imported "
+              f"{out['foreign']}")
+    # the same chunks on this one process, whole R
+    for style in ("pair", "eam"):
+        cfg = BENCH.configs()["lj" if style == "pair" else "eam"]
+        _, (_, _, _, _, diag), secs, moves, d0 = two_chunks(
+            cfg, table if style == "eam" else None, DEV)
+        check(d0 == 0 and diag == 0, f"[sharded] one process {style}: "
+              f"diag {d0}, {diag}")
+        per = "; ".join(
+            f"rank {k} {v[style]['secs']:.4f} s a chunk, "
+            f"{v[style]['moves'] / v[style]['secs']:.4e} moves/s "
+            f"({v[style]['rl']} replicas, launches {v[style]['launches']})"
+            for k, v in sorted(res.items()))
+        errs = res[0][style]["pe_err"]
+        log(f"[sharded] {style} R={res[0][style]['r']} ({cfg.ncells} fcc "
+            f"cells, {cfg.mod} sweeps a chunk) over {SHARD_RANKS} ranks on "
+            f"one card ({res[0]['backend']}): diag 0, hist rows "
+            f"permutations, record pe against brute force |err| "
+            + ", ".join(f"{e:.3e}" for e in errs)
+            + f"; {per}; one process {secs:.4f} s a chunk, "
+            f"{moves / secs:.4e} moves/s on {name}")
+    log(f"[sharded] the second chunk of each, on the host's clock after "
+        f"a device sync; the ranks share one card, so this is no scaling "
+        f"figure; ranks {ranks_s:.1f} s")
+
+
 def compare_probe(a, b, passes):
     """Every P1 variant at ``passes[variant]`` passes against its plain
     version; max |kernel - plain| by variant."""
@@ -3000,6 +3216,7 @@ def main():
               ("serial-run", lambda: phase_serial_run(name)),
               ("golden", lambda: phase_golden(name)),
               ("golden-hmc", lambda: phase_golden_hmc(name)),
+              ("sharded", lambda: phase_sharded(name, table)),
               ("probe", lambda: phase_probe(name)),
               ("eam-longrc", lambda: phase_eam_longrc(name)),
               ("eam-gather-full", lambda: phase_eam_gather_full(name, table)),

@@ -48,6 +48,7 @@ import torch
 from neuralmelting_tpu_torch import runner
 from neuralmelting_tpu_torch.config import RunConfig
 from neuralmelting_tpu_torch.models import eam_gen
+from neuralmelting_tpu_torch.ops import jrandom
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.profile_chunk import configs as full_configs
 from neuralmelting_tpu_torch.sampler import cellmc as SC
@@ -84,8 +85,9 @@ def kernel_row(setup):
         (states, slabs, count, shift, slot_of, _recs, _frames, _hist,
          _xacc, d, tried) = run(
             setup.states, setup.slabs, setup.slab_count, setup.shift,
-            setup.slot_of, setup.gen, setup.pot, setup.cell_tabs,
-            setup.t_grid, setup.p_grid, (cfg.seed, cfg.seed + 7))
+            setup.slot_of, jrandom.key(cfg.seed + 1), setup.pot,
+            setup.cell_tabs, setup.t_grid, setup.p_grid,
+            (cfg.seed, cfg.seed + 7))
         return dataclasses.replace(
             setup, states=states, slabs=slabs, slab_count=count,
             shift=shift, slot_of=slot_of,

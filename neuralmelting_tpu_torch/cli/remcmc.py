@@ -6,6 +6,11 @@ Runs the replica-exchange NPT Monte Carlo ensemble on the card (or on
 checkpoint and ``metrics.jsonl``; the last line printed is a JSON summary.
 
     python -m neuralmelting_tpu_torch.cli.remcmc -e LJ -ss 4 -pn 4 -tn 16 -o out/
+
+With ``--coordinator HOST:PORT --nprocs N --procid I`` (one process per
+device, each started with its own ``--procid``) the cellmc engine samples
+each process's shard of the replicas (parallel/cellmc_sharded.py) and
+process 0 alone writes the files and prints the summary.
 """
 
 from __future__ import annotations
@@ -18,10 +23,8 @@ import time
 
 from neuralmelting_tpu_torch import runner
 from neuralmelting_tpu_torch.cli.common import add_run_args, config_from_args
+from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.utils import MetricsLogger
-
-_MULTI = ("multi-process runs are not ported yet: ROADMAP A12 (multi-GPU "
-          "replica sharding)")
 
 
 def _trace(profile_dir):
@@ -62,13 +65,28 @@ def main(argv=None):
                     help="write a torch.profiler Chrome trace of the run "
                          "into DIR")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="multi-process runs: not ported (ROADMAP A12)")
+                    help="multi-process runs: the address of process 0's "
+                         "torch.distributed store; start one process per "
+                         "device with --nprocs/--procid. The cellmc "
+                         "engine samples each process's shard of the "
+                         "replicas, process 0 writes all outputs; the "
+                         "device is cuda:procid %% device_count() unless "
+                         "--device names one. NCCL where each process "
+                         "owns its card, else gloo")
     ap.add_argument("--nprocs", type=int, default=None)
     ap.add_argument("--procid", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.coordinator or args.nprocs is not None \
-            or args.procid is not None:
-        raise NotImplementedError(_MULTI)
+    if args.coordinator:
+        args.device = mesh.rank_device(args.device, args.procid)
+        mesh.init_multihost(args.coordinator, args.nprocs, args.procid,
+                            device=args.device)
+    try:
+        _run(args)
+    finally:
+        mesh.shutdown()
+
+
+def _run(args):
     cfg = config_from_args(args)
 
     t0 = time.time()
@@ -88,11 +106,14 @@ def main(argv=None):
             write_traj=not args.no_traj, metrics=metrics)
     if args.profile:
         print(f"profiler trace written to {args.profile}")
+    r = len(setup.press) * len(setup.temp)
+    ntp = mesh.host_fetch(setup.states.ntp, r)    # a collective
+    if mesh.process_index() != 0:
+        return
     print(json.dumps({
         "outdir": args.outdir, "records": int(cfg.nsmpl),
-        "replicas": int(len(setup.press) * len(setup.temp)),
-        "natoms": setup.natoms, "diag": int(diag),
-        "attempted_position_moves": int(setup.states.ntp.sum()),
+        "replicas": int(r), "natoms": setup.natoms, "diag": int(diag),
+        "attempted_position_moves": int(ntp.sum()),
         "exchange_acceptances": [int(x) for x in xacc.tolist()],
         "seconds": round(time.time() - t0, 2),
     }))

@@ -10,17 +10,21 @@ checkpoint and this ``load`` reads a JAX one.
 ``key_data`` holds the replicas' live keys where the ensemble carries
 them (the gather engine, ``sampler/state.py``), so a resumed run goes on
 with its own draws. A cellmc ensemble carries none (its host draws come
-from a ``torch.Generator``): for it ``save`` writes the keys the JAX
-``ensemble_init`` derives, ``fold_in(key(seed), r)`` for replica r
-(``ops/jrandom.py``), with the seed read from the config. ``load``
+from a key chain of the config's seed and the sweep counter, which a
+resumed run rederives on any device): for it ``save`` writes the keys
+the JAX ``ensemble_init`` derives, ``fold_in(key(seed), r)`` for replica
+r (``ops/jrandom.py``), with the seed read from the config. ``load``
 restores ``key_data`` as the states' keys, on ``device``. What the port's
 runner needs besides for an exact resume travels as extras
-(``runner.checkpoint_extras``).
+(``runner.checkpoint_extras``). Earlier port checkpoints also held a
+``torch.Generator`` state (``x_gen_state``, ``x_gen_device``): ``load``
+drops it with one warning.
 """
 
 from __future__ import annotations
 
 import json
+import warnings
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ from neuralmelting_tpu_torch.ops import jrandom
 from neuralmelting_tpu_torch.sampler.state import FIELDS, MCState
 
 _INT_FIELDS = ("nap", "ntp", "nav", "ntv", "nah", "nth", "sweep")
+_GEN_EXTRAS = {"gen_state", "gen_device"}
 
 
 def ensemble_key_data(seed: int, r: int) -> np.ndarray:
@@ -78,5 +83,12 @@ def load(path: str, device="cpu"):
         slot_of = t("slot_of", torch.int32)
         config_json = bytes(z["config"]).decode() if "config" in z \
             else "{}"
-        extra = {k[2:]: z[k] for k in z.files if k.startswith("x_")}
+        extra = {k[2:]: z[k] for k in z.files
+                 if k.startswith("x_") and k[2:] not in _GEN_EXTRAS}
+        if _GEN_EXTRAS & {k[2:] for k in z.files}:
+            warnings.warn(f"checkpoint {path} holds a torch.Generator "
+                          "state, which the port no longer uses: the "
+                          "cellmc host draws go on from the config's seed "
+                          "and the sweep counter", RuntimeWarning,
+                          stacklevel=2)
     return states, slot_of, config_json, extra

@@ -15,8 +15,9 @@ pressure.
 
 The run resumes. Counters live in ``<state>/progress.json``, and the
 ensemble in ``<state>/ck.npz`` (``io/checkpoint.py`` with
-``runner.checkpoint_extras``: slabs, grid shift and generator state, so a
-resumed run continues the same chain). A checkpoint is written when
+``runner.checkpoint_extras``: slabs and grid shift, and the host draws
+follow from the seed and the sweep counter, so a resumed run continues
+the same chain). A checkpoint is written when
 ``--ck-secs`` of wall have passed since the last one and at the end of
 each stage; the counters advance only with a saved checkpoint, so a
 stopped run repeats the chunks after its last one. A state written under

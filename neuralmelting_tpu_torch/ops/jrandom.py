@@ -42,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from neuralmelting_tpu_torch.ops.rng import threefry2x32
+from neuralmelting_tpu_torch.ops.rng import threefry2x32, threefry2x32_int
 
 _MASK = 0xFFFFFFFF
 _ONE_BITS = 0x3F800000          # 1.0f
@@ -84,6 +84,19 @@ def split(k, num: int = 2) -> torch.Tensor:
     hi, lo = _counters((num,), k.device)
     b0, b1 = _hash(k, hi, lo)
     return torch.stack([b0, b1], dim=-1)
+
+
+def split_host(k, num: int = 2) -> list:
+    """``split`` of one key held as two Python ints: ``num`` word pairs,
+    with no tensor operation (a host key chain's step)."""
+    k0, k1 = (int(w) & _MASK for w in k)
+    return [threefry2x32_int(k0, k1, 0, i) for i in range(num)]
+
+
+def fold_in_host(k, data: int) -> tuple:
+    """``fold_in`` of one key held as two Python ints."""
+    k0, k1 = (int(w) & _MASK for w in k)
+    return threefry2x32_int(k0, k1, 0, int(data) & _MASK)
 
 
 def _i64(v, device) -> torch.Tensor:

@@ -46,6 +46,27 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def threefry2x32_int(k0: int, k1: int, x0: int, x1: int):
+    """``threefry2x32`` on Python ints (uint32 values): a host key chain's
+    step without a tensor operation."""
+    ks = (k0, k1, k0 ^ k1 ^ _TF_C)
+    x0 = (x0 + k0) & _MASK
+    x1 = (x1 + k1) & _MASK
+    for i, rots in enumerate(_TF_ROUNDS):
+        for r, rr in rots:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) & _MASK) | (x1 >> rr)) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+# the five rounds' (rotation, 32 - rotation) pairs
+_TF_ROUNDS = tuple(tuple((r, 32 - r) for r in _TF_ROT[4 * (i % 2):
+                                                      4 * (i % 2) + 4])
+                   for i in range(5))
+
+
 def bits_to_u01(b):
     """32-bit word -> f32 uniform in (0, 1] (never 0: log-safe)."""
     return ((_u32(b) & 0x7FFFFF) + 1).to(torch.float32) * (2.0 ** -23)

@@ -24,10 +24,17 @@ A chunk can log a ``sampling_chunk`` metrics event, write the
 per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a checkpoint
 (``io/checkpoint.py``) that ``restore_setup`` resumes exactly.
 
+Multi-process runs (``parallel/mesh.init_multihost``, one process per
+device): the cellmc engine keeps each rank's shard of the replicas and
+runs ``parallel/cellmc_sharded.py``; the chunk's records, slot history
+and checkpoint are gathered on every rank and rank 0 alone writes them,
+in the single-process layout, which a single-process run resumes.
+
 Not here yet, each named with the ROADMAP item that brings it: the
-dense engine (A14, not ported), multi-GPU (A12). Unlike the JAX runner
-there is no compile cache (nothing is traced) and no scoped-VMEM guard
-(a TPU compiler limit).
+dense engine (A14, not ported); under more than one process the gather
+engine, ``restore_setup`` and ``exchange=False`` (A12, rest). Unlike the
+JAX runner there is no compile cache (nothing is traced) and no
+scoped-VMEM guard (a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neuralmelting_tpu_torch import units
 from neuralmelting_tpu_torch.config import ELEMENTS, RunConfig, grids
@@ -55,7 +63,9 @@ from neuralmelting_tpu_torch.ops import cellmc_geom as CG
 from neuralmelting_tpu_torch.ops import cells as cells_ops
 from neuralmelting_tpu_torch.ops import jrandom
 from neuralmelting_tpu_torch.ops import potential_ops as PO
+from neuralmelting_tpu_torch.parallel import cellmc_sharded as CSH
 from neuralmelting_tpu_torch.parallel import ensemble as ENS
+from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 from neuralmelting_tpu_torch.sampler.state import ensemble_init
 
@@ -64,6 +74,12 @@ _LATER = {
               "chain runs through sampler/serial.py, see golden.py",
     "dense": "ROADMAP A14 (the dense/MXU engine is not ported)",
 }
+_A12_REST = ("ROADMAP A12 (rest): the gather engine over a process group "
+             "and re-sharded restart")
+
+
+def _multi() -> bool:
+    return mesh.process_count() > 1
 
 
 @dataclasses.dataclass
@@ -81,8 +97,6 @@ class RunSetup:
     slot_of: torch.Tensor      # (R,) replica -> slot
     natoms: int
     device: torch.device
-    gen: Optional[torch.Generator]  # cellmc host draws (volume, rebin,
-                                    # exchange); None on gather
     engine: str = "gather"     # "gather" | "cellmc"
     mass: float = 1.0
     # gather engine: per-replica neighbour lists, the potential cache,
@@ -154,6 +168,9 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     if engine not in ("gather", "cellmc"):
         raise NotImplementedError(
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
+    if engine == "gather" and _multi():
+        raise NotImplementedError(
+            f"the gather engine under more than one process: {_A12_REST}")
     el = ELEMENTS[cfg.element]
     if cfg.phmc > 0 and engine == "cellmc":
         raise ValueError(
@@ -187,7 +204,7 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
         setup = RunSetup(
             cfg=cfg, pot=pot, style=style, us=us, press=press, temp=temp,
             t_grid=t_grid, p_grid=p_grid, states=states, slot_of=slot_of,
-            natoms=n, device=dev, gen=None, engine="gather", mass=el.mass,
+            natoms=n, device=dev, engine="gather", mass=el.mass,
             cap=cap, cellcfg=cellcfg,
             table=ENS.table_tensor(cellcfg, dev),
             moves_tried=torch.zeros((), dtype=torch.int64, device=dev))
@@ -209,13 +226,16 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
         states = SC.refresh_energies(geom, states, slabs, pot)
     else:
         states, slabs = _eam_rho(geom, states, slabs, pot, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(cfg.seed))
+    if _multi():
+        # every rank built the same whole-R ensemble: keep this rank's
+        # shard of it
+        states, slabs, slab_count, slot_of = mesh.to_global(
+            (states, slabs, slab_count, slot_of), r)
     return RunSetup(
         cfg=cfg, pot=pot, style=style, us=us, press=press, temp=temp,
         t_grid=t_grid,
         p_grid=p_grid, states=states, slot_of=slot_of, natoms=n,
-        device=dev, gen=gen, engine="cellmc", mass=el.mass, geom=geom,
+        device=dev, engine="cellmc", mass=el.mass, geom=geom,
         slabs=slabs,
         slab_count=slab_count, shift=shift,
         cell_tabs=torch.as_tensor(CG.geom_tables(geom), device=dev),
@@ -262,7 +282,20 @@ def _install_slabs(setup: RunSetup, geom, slabs, slab_count,
 def _rebind_cellmc(setup: RunSetup, geom) -> RunSetup:
     """Re-bin the CURRENT ensemble (positions exact at a chunk boundary)
     into slabs for a new geometry; grows kcap once more if the new cap
-    still overflows."""
+    still overflows. Under more than one process: gathers the ensemble,
+    re-bins it whole on every rank and keeps this rank's shard again."""
+    if not _multi():
+        return _rebind_whole(setup, geom)
+    r = setup.t_grid.shape[0]
+    whole = _rebind_whole(dataclasses.replace(
+        setup, states=mesh.host_fetch(setup.states, r)), geom)
+    states, slabs, count = mesh.to_global(
+        (whole.states, whole.slabs, whole.slab_count), r)
+    return dataclasses.replace(whole, states=states, slabs=slabs,
+                               slab_count=count)
+
+
+def _rebind_whole(setup: RunSetup, geom) -> RunSetup:
     shift = torch.zeros((3,), dtype=torch.float32, device=setup.device)
     slabs, slab_count, over = SC.build_slabs(geom, setup.states, shift)
     if bool(over):
@@ -278,9 +311,10 @@ def checkpoint_extras(setup: RunSetup) -> dict:
     """What an exact resume needs beyond the states (their keys included)
     and ``slot_of``. Gather: the positions and boxes the neighbour lists
     were built from and their capacity, so the restored lists are the
-    same lists. Cellmc: the host generator's state and device, and the
-    slabs as the chunk left them (geometry, grid shift, coordinates in
-    the shifted frame and the atom of every slot). EAM's density (the
+    same lists. Cellmc: the slabs as the chunk left them (geometry, grid
+    shift, coordinates in the shifted frame and the atom of every slot);
+    its host draws need nothing, since their key chain is rederived from
+    the config's seed and the sweep counter. EAM's density (the
     gather cache, the cellmc slab) is recomputed at restore, as exactly
     as the last record computed it."""
     if setup.engine == "gather":
@@ -288,9 +322,7 @@ def checkpoint_extras(setup: RunSetup) -> dict:
                 "nl_ref_box": setup.nls.ref_box,
                 "nl_capacity": np.int32(setup.cap)}
     g = setup.geom
-    return {"gen_state": setup.gen.get_state(),
-            "gen_device": np.str_(setup.device.type),
-            "geom": np.asarray(list(g.ncell) + [g.kcap], np.int32),
+    return {"geom": np.asarray(list(g.ncell) + [g.kcap], np.int32),
             "shift": setup.shift,
             "slab_xyz": torch.stack(tuple(setup.slabs[:3]), dim=1),
             "slab_ids": setup.slabs[3]}
@@ -305,12 +337,16 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     were built from, so they are the same lists and the run goes on as if
     it had not stopped; a JAX package checkpoint has none, and its lists
     are built from its positions, as the JAX runner builds them. Cellmc:
-    a port checkpoint brings its slabs, grid shift and generator state; a
-    JAX package checkpoint has none of them: its positions are re-binned
-    at shift 0 through ``_rebind_cellmc`` (whose kcap grow-and-retry
-    absorbs a compressed box) and the generator restarts from
-    ``cfg.seed``, with a warning. Warns when the stored config differs
-    from the current one."""
+    a port checkpoint brings its slabs and grid shift; a JAX package
+    checkpoint has neither: its positions are re-binned at shift 0
+    through ``_rebind_cellmc`` (whose kcap grow-and-retry absorbs a
+    compressed box), with a warning. Either way the host draws go on
+    from the key chain of ``cfg.seed`` at the states' sweep counter, on
+    any device. Warns when the stored config differs from the current
+    one."""
+    if _multi():
+        raise NotImplementedError(
+            f"restore_setup under more than one process: {_A12_REST}")
     states, slot_of, cfg_json, extra = ckpt.load(checkpoint_path,
                                                  setup.device)
     if cfg_json not in ("{}", setup.cfg.to_json()):
@@ -322,20 +358,11 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
             f"this run's {tuple(setup.states.pos.shape)} (replicas, atoms)")
     if setup.engine == "gather":
         return _restore_gather(setup, states, slot_of, extra)
-    gen = torch.Generator(device=setup.device)
-    saved = str(extra.get("gen_device", ""))
-    if "gen_state" in extra and saved == setup.device.type:
-        gen.set_state(torch.as_tensor(extra["gen_state"]))
-    else:
-        gen.manual_seed(int(setup.cfg.seed))
-        why = (f"its generator ran on {saved!r}" if saved
-               else "it holds no generator state")
-        warnings.warn(f"checkpoint {checkpoint_path}: {why}; the host "
-                      f"draws restart from seed {setup.cfg.seed}",
-                      RuntimeWarning, stacklevel=2)
-    setup = dataclasses.replace(setup, states=states, slot_of=slot_of,
-                                gen=gen)
+    setup = dataclasses.replace(setup, states=states, slot_of=slot_of)
     if "slab_ids" not in extra:
+        warnings.warn(f"checkpoint {checkpoint_path} holds no slabs: its "
+                      "positions are re-binned at grid shift 0",
+                      RuntimeWarning, stacklevel=2)
         return _rebind_cellmc(setup, setup.geom)
     nx, ny, nz, kcap = (int(v) for v in extra["geom"])
     geom = dataclasses.replace(setup.geom, ncell=(nx, ny, nz), kcap=kcap)
@@ -374,12 +401,15 @@ def _refresh_cellmc_geom(setup: RunSetup) -> RunSetup:
     hysteresis: grow when occupancy is within 4 slots of the cap, shrink
     when the tight cap is 16 below it."""
     g = setup.geom
-    minbox = torch.min(setup.states.box, dim=0).values.cpu().numpy()
+    # over every rank's replicas
+    minbox = mesh.all_reduce_(torch.min(setup.states.box, dim=0).values,
+                              dist.ReduceOp.MIN).cpu().numpy()
     ng = CG.make_geom(minbox.astype(np.float64), setup.pot.rc_host,
                       setup.natoms, nsub=g.nsub, stride=g.stride)
     if ng.ncell != g.ncell:
         return _rebind_cellmc(setup, ng)
-    maxcount = int(torch.max(setup.slab_count))
+    maxcount = int(mesh.all_reduce_(torch.max(setup.slab_count),
+                                    dist.ReduceOp.MAX))
     kt = CG.tight_kcap(maxcount, g.nsub)
     if maxcount > g.kcap - 4 or kt <= g.kcap - 16:
         return _rebind_cellmc(setup, dataclasses.replace(g, kcap=kt))
@@ -426,12 +456,18 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     in the JAX runner). Then, as in the JAX runner: a ``sampling_chunk``
     event to ``metrics`` (a ``utils.MetricsLogger``), the slot files into
     ``outdir`` when ``write_files``, and a checkpoint to
-    ``checkpoint_path``.
+    ``checkpoint_path``. Under more than one process the returned recs,
+    frames and hist are whole-R on every rank (``setup`` keeps the
+    rank's shard), and rank 0 alone writes.
     """
     t0 = time.time()
     cfg = setup.cfg
     npress, ntemp = len(setup.press), len(setup.temp)
     nrecords = nrecords or cfg.nsmpl
+    multi = _multi()
+    if multi and not exchange:
+        raise NotImplementedError(
+            f"exchange=False under more than one process: {_A12_REST}")
     if setup.engine == "gather":
         if not exchange:
             raise ValueError(
@@ -442,22 +478,41 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     else:
         setup, recs, frames, hist, xacc, diag_host = _run_cellmc(
             setup, nrecords, write_traj, exchange)
-    if metrics is not None:
+    is_writer = True
+    ck_states, ck_slots = setup.states, setup.slot_of
+    if multi:
+        # collectives: every rank gathers, rank 0 writes
+        r = setup.t_grid.shape[0]
+        recs, frames, hist = mesh.host_fetch((recs, frames, hist), r,
+                                             axis=1)
+        if checkpoint_path:
+            ck_states, ck_slots = mesh.host_fetch(
+                (setup.states, setup.slot_of), r)
+        is_writer = mesh.process_index() == 0
+    if metrics is not None and is_writer:
         metrics.log("sampling_chunk", records=int(nrecords),
                     replicas=int(hist.shape[1]), natoms=setup.natoms,
                     seconds=round(time.time() - t0, 3), diag=diag_host,
                     exchange_acc=[int(x) for x in xacc.tolist()])
-    if write_files and outdir is not None:
+    if write_files and outdir is not None and is_writer:
         os.makedirs(outdir, exist_ok=True)
         write_slot_files(cfg, outdir, recs, frames, hist, npress, ntemp,
                          setup.natoms)
     if checkpoint_path:
-        ckpt.save(checkpoint_path, setup.states, setup.slot_of,
-                  cfg.to_json(), checkpoint_extras(setup))
+        extras = checkpoint_extras(setup)
+        if multi:
+            for k in ("slab_xyz", "slab_ids"):
+                extras[k] = mesh.all_gather(extras[k])
+        if is_writer:
+            ckpt.save(checkpoint_path, ck_states, ck_slots, cfg.to_json(),
+                      extras)
     return setup, recs, frames, hist, xacc, diag_host
 
 
 _GATHER_DIAG = {1: "NL_OVERFLOW", 2: "CB_INVALID", 8: "NL_STALE"}
+_CELLMC_DIAG = {SC.DIAG_CB_INVALID: "CB_INVALID",
+                SC.DIAG_SLAB_OVERFLOW: "SLAB_OVERFLOW",
+                SC.DIAG_SHIFT_DESYNC: "SHIFT_DESYNC"}
 
 
 def gather_run_kwargs(setup: RunSetup, nrecords: int,
@@ -523,26 +578,30 @@ def _run_cellmc(setup: RunSetup, nrecords: int, write_traj: bool,
         # the chunk replaces and updates states and slabs; keep the
         # pre-chunk ensemble for the slab-overflow retry below
         pre_states = setup.states.clone()
-        make = (SC.make_eam_run_fn if setup.style == "eam"
-                else SC.make_cellmc_run_fn)
-        run = make(
-            setup.us.kb, setup.us.p2e, setup.geom, mod=cfg.mod,
-            nrecords=nrecords, ncyc=SC.default_ncyc(setup.geom), nvol=nvol,
-            factor=cfg.adapt_factor, vol_every=cfg.vol_every,
-            rebin_every=cfg.rebin_every, targets=targets,
-            exchange=exchange, npress=npress, ntemp=ntemp,
-            write_traj=write_traj)
+        kw = dict(mod=cfg.mod, nrecords=nrecords,
+                  ncyc=SC.default_ncyc(setup.geom), nvol=nvol,
+                  factor=cfg.adapt_factor, vol_every=cfg.vol_every,
+                  rebin_every=cfg.rebin_every, targets=targets,
+                  npress=npress, ntemp=ntemp, write_traj=write_traj)
+        if _multi():
+            run = CSH.make_sharded_cellmc_run_fn(
+                setup.us.kb, setup.us.p2e, setup.geom, style=setup.style,
+                **kw)
+        else:
+            make = (SC.make_eam_run_fn if setup.style == "eam"
+                    else SC.make_cellmc_run_fn)
+            run = make(setup.us.kb, setup.us.p2e, setup.geom,
+                       exchange=exchange, **kw)
         if exchange:
             (states, slabs, slab_count, shift, slot_of, recs, frames, hist,
              xacc, diag, tried) = run(
                 setup.states, setup.slabs, setup.slab_count, setup.shift,
-                setup.slot_of, setup.gen, setup.pot, setup.cell_tabs,
-                setup.t_grid, setup.p_grid, seed0)
+                setup.slot_of, jrandom.key(cfg.seed + 1), setup.pot,
+                setup.cell_tabs, setup.t_grid, setup.p_grid, seed0)
         else:
             (states, slabs, slab_count, shift, recs, frames, diag,
              tried) = run(setup.states, setup.slabs, setup.slab_count,
-                          setup.shift, setup.pot, setup.cell_tabs, seed0,
-                          setup.gen)
+                          setup.shift, setup.pot, setup.cell_tabs, seed0)
             slot_of = setup.slot_of
             hist = slot_of[None].expand(nrecords, -1).clone()
             xacc = torch.zeros((nrecords,), dtype=torch.int64,
@@ -565,9 +624,10 @@ def _run_cellmc(setup: RunSetup, nrecords: int, write_traj: bool,
             continue
         break
     if diag_host != 0:
+        names = [v for k, v in _CELLMC_DIAG.items() if diag_host & k]
         warnings.warn(
-            f"sampling chunk finished with diagnostic flags {diag_host}: "
-            "outputs may be physically wrong (cell width below rc)",
+            f"sampling chunk finished with diagnostic flags {diag_host} "
+            f"({'|'.join(names)}): outputs may be physically wrong",
             RuntimeWarning, stacklevel=3)
     setup = dataclasses.replace(
         setup, states=states, slabs=slabs, slab_count=slab_count,

@@ -20,14 +20,26 @@ counter once at its start and otherwise syncs with the host only at its
 end, where the caller reads ``diag``: every schedule decision (volume
 sweeps, rebin axis, exchange phase) is a function of that host counter.
 
+The host draws — volume trials, the rebin shift and the exchange
+uniforms — come from the JAX engines' ``jax.random`` key chain
+(``ops/jrandom.py``), bit for bit: the chunk's key is
+``fold_in(fold_in(key(c), seed0[0]), sweep0)`` (c = 0 for LJ without
+exchange, 1 for LJ with it, 2 for EAM), each sweep splits it into
+(key, kvol, kreb), volume trial v draws ``u`` and ``ln_u`` from the two
+halves of ``fold_in(kvol, v)`` and the rebin its shift from ``kreb``;
+exchange event e draws from ``fold_in(fold_in(xkey, e), sweep)``. The
+chain depends only on ``seed0`` and the sweep counter, so a chunk walks
+it on the host at its start and draws every uniform of the chunk in one
+batched pass on the device (``chunk_draws``); a resumed run rederives
+it. ``shard`` (the sharded runner, parallel/cellmc_sharded.py) adds the
+shard index to the kernel seed word and folds it into ``kvol``, as the
+JAX engines do under ``axis_name``; ``kreb`` stays shared.
+
 Known deviations from the JAX engines (same stationary distribution):
-  * host-side draws — volume trials, the rebin shift and the exchange
-    uniforms — come from one ``torch.Generator`` on the run's device,
-    seeded by the runner and carried across chunks, not from
-    ``jax.random``: the streams differ, the distributions are the same.
-    (The in-kernel sweep draws are the JAX threefry stream bit for bit.)
   * the volume scale is ``pow(x, 1/3)`` (torch has no cbrt), under the
-    same ``ok`` mask;
+    same ``ok`` mask; it differs from ``jnp.cbrt`` by at most 1 f32 ulp
+    (tests/test_torch_keychain.py measures it), and ``ln_u`` is
+    ``torch.log`` of JAX's uniform, within 1 ulp of XLA's ``log``;
   * the chunk also returns the number of attempted moves (position trials
     plus volume trials), for the moves/s metric.
 """
@@ -39,7 +51,7 @@ import torch
 from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
-from neuralmelting_tpu_torch.ops import rng
+from neuralmelting_tpu_torch.ops import jrandom, rng
 from neuralmelting_tpu_torch.sampler import tempering
 from neuralmelting_tpu_torch.sampler.adapt import adapt_step_sizes
 from neuralmelting_tpu_torch.sampler.driver import make_record, stack_records
@@ -47,6 +59,12 @@ from neuralmelting_tpu_torch.sampler.state import box_volume
 
 DIAG_CB_INVALID = 2          # cell width fell below rc (box shrank)
 DIAG_SLAB_OVERFLOW = 4       # a cell exceeded its K slot capacity
+DIAG_SHIFT_DESYNC = 16       # sharded runner: the grid shift differs
+                             # across shards
+
+# the base of each runner's key chain, as in the JAX engines
+CHAIN_BASE = {("pair", False): 0, ("pair", True): 1, ("eam", False): 2,
+              ("eam", True): 2}
 
 
 def default_ncyc(geom) -> int:
@@ -132,10 +150,65 @@ def _cells_cover(states, geom, rc2):
     return torch.where(wmin * wmin < rc2, DIAG_CB_INVALID, 0)
 
 
-def _vol_propose(states, gen):
-    """Volume trial: (vol, dv, ok, s) with s the isotropic scale."""
-    r = states.temp.shape[0]
-    u = torch.rand((r,), generator=gen, device=states.box.device)
+def chain_key(base: int, seed0, sweep0: int) -> tuple:
+    """The chunk's first key, ``fold_in(fold_in(key(base), seed0[0]),
+    sweep0)``, as two Python ints."""
+    return jrandom.fold_in_host(jrandom.fold_in_host((0, base),
+                                                     int(seed0[0])),
+                                int(sweep0))
+
+
+def chunk_draws(key0, nsweeps: int, nvol: int, r: int, device,
+                shard=None, xkeys=()):
+    """Every host draw of ``nsweeps`` sweeps from the key chain at
+    ``key0``: per sweep ``key, kvol, kreb = split(key, 3)``, kvol with
+    ``shard`` folded in when given. Returns (u (S, nvol, r) of the volume
+    trials, ln_u (S, nvol, r) of their acceptance, du (S,) of the rebin,
+    xu (E, r) the exchange uniforms of the E keys ``xkeys``). The chain
+    and every draw's key are walked on the host in Python ints; the
+    uniforms are one batched pass over those keys on ``device`` (``du``
+    is the first word of its key's stream, as ``uniform(kreb, ())``
+    draws it)."""
+    k, rows = key0, []
+    for _ in range(nsweeps):
+        k, kvol, kreb = jrandom.split_host(k, 3)
+        if shard is not None:
+            kvol = jrandom.fold_in_host(kvol, shard)
+        for v in range(nvol):
+            rows += jrandom.split_host(jrandom.fold_in_host(kvol, v), 2)
+        rows.append(kreb)
+    n = len(rows)
+    keys = torch.tensor(rows + list(xkeys), dtype=torch.int64).to(device)
+    f = jrandom.floats01(jrandom.random_bits(keys, (r,)))
+    g = f[:n].reshape(nsweeps, 2 * nvol + 1, r)
+    u = jrandom.scale_uniform(g[:, 0:2 * nvol:2], 0.0, 1.0)
+    ln_u = torch.log(jrandom.scale_uniform(g[:, 1:2 * nvol:2], 1e-38, 1.0))
+    return (u, ln_u, jrandom.scale_uniform(g[:, 2 * nvol, 0], 0.0, 1.0),
+            jrandom.scale_uniform(f[n:], 1e-38, 1.0))
+
+
+def exchange_keys(xkey, sweep0: int, mod: int, nrecords: int) -> list:
+    """The host keys of a chunk's exchange events: event e draws from
+    ``fold_in(fold_in(xkey, e), sweep0 + (e + 1) mod)``, as the JAX
+    ``propose_swaps`` does after its record block."""
+    xk = [int(w) for w in xkey.tolist()]
+    return [jrandom.fold_in_host(jrandom.fold_in_host(xk, e),
+                                 sweep0 + (e + 1) * mod)
+            for e in range(nrecords)]
+
+
+def exchange_draws(xkey, sweep0: int, mod: int, nrecords: int, r: int,
+                   device):
+    """(nrecords, r) exchange uniforms of ``exchange_keys``, in one pass
+    on ``device``."""
+    keys = exchange_keys(xkey, sweep0, mod, nrecords)
+    return jrandom.uniform(torch.tensor(keys, dtype=torch.int64).to(device),
+                           (r,), 1e-38, 1.0)
+
+
+def _vol_propose(states, u):
+    """Volume trial at the uniforms ``u``: (vol, dv, ok, s) with s the
+    isotropic scale."""
     vol = box_volume(states.box)
     dv = states.dvol * (2.0 * u - 1.0)
     ok = (vol + dv) > 0.0
@@ -144,15 +217,11 @@ def _vol_propose(states, gen):
     return vol, dv, ok, s
 
 
-def _vol_accept(states, e_old, e_new, vol, dv, ok, n, kb, p2e, gen):
+def _vol_accept(states, e_old, e_new, vol, dv, ok, n, kb, p2e, ln_u):
     """NPT Metropolis of a volume trial (with the V^N Jacobian)."""
-    r = states.temp.shape[0]
     beta = 1.0 / (kb * states.temp)
     ln_acc = (-beta * ((e_new - e_old) + states.press * p2e * dv)
               + n * torch.log(torch.where(ok, (vol + dv) / vol, 1.0)))
-    # 1 - U[0,1) lies in (0, 1]: log-safe
-    ln_u = torch.log(1.0 - torch.rand((r,), generator=gen,
-                                      device=states.box.device))
     return ok & (ln_u < ln_acc)
 
 
@@ -162,15 +231,14 @@ def _rescale(slabs3, sca):
 
 
 def _rebin(geom, rebin_every, sweep_id, slabs4, count, shift, box,
-           cell_tabs, gen, diag, extras=()):
-    """Grid-shift rebinning, one axis per rebin event; ``extras`` travel
-    with their atoms."""
+           cell_tabs, du, diag, extras=()):
+    """Grid-shift rebinning, one axis per rebin event, shifted by
+    ``du`` of a cell; ``extras`` travel with their atoms."""
     if sweep_id % rebin_every != 0:
         return slabs4, count, shift, diag, extras
     # the axis rotates per EVENT, so rebin_every % 3 == 0 cannot pin one
     # axis
     a = (sweep_id // rebin_every) % 3
-    du = torch.rand((), generator=gen, device=box.device)
     delta = du * (0.9 / geom.ncell[a])
     out = CG.rebin_axis(geom, slabs4, count, box, delta, a,
                         cell_tab=cell_tabs[a], extras=extras)
@@ -182,20 +250,25 @@ def _rebin(geom, rebin_every, sweep_id, slabs4, count, shift, box,
 
 
 def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
-                  exchange, npress, ntemp, adapt, kin_of, sweep_step,
-                  record_totals):
+                  exchange, npress, ntemp, adapt, nvol, chain_base, shard,
+                  kin_of, sweep_step, record_totals):
     """The chunk loops of both engines around their ``sweep_step``.
 
     ``kin_of(pot, device)``: the kernels' inputs of a chunk;
-    ``sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles)``
-    advances st = (states, slabs, count, shift, diag, tried) one sweep;
+    ``sweep_step(st, sweep_id, kin, cell_tabs, seeds, draws, rtt,
+    ntiles)`` advances st = (states, slabs, count, shift, diag, tried) one
+    sweep, ``seeds`` (seed0[0], seed0[1] + shard) of the kernel stream and
+    ``draws`` (u (nvol, R), ln_u (nvol, R), du ()) the sweep's host draws;
     ``record_totals(states, slabs, kin) -> (pe, virial, slabs)`` gives the
     drift-free energetics at a record point."""
 
-    def block_core(st, sweep0, kin, cell_tabs, seed0, gen, rtt, ntiles):
+    def block_core(st, b, sweep0, kin, cell_tabs, seeds, draws, rtt,
+                   ntiles):
+        u, ln_u, du, _ = draws
         for i in range(mod):
-            st = sweep_step(st, sweep0 + i, kin, cell_tabs, seed0, gen, rtt,
-                            ntiles)
+            j = b * mod + i
+            st = sweep_step(st, sweep0 + j, kin, cell_tabs, seeds,
+                            (u[j], ln_u[j], du[j]), rtt, ntiles)
         states, slabs, count, shift, diag, tried = st
         # drift-free energetics + position sync at the record point
         pe, w, slabs = record_totals(states, slabs, kin)
@@ -207,14 +280,20 @@ def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
         frame = (states.pos, states.box.clone()) if write_traj else None
         return (states, slabs, count, shift, diag, tried), rec, frame
 
-    def start(states, pot):
+    def start(states, pot, seed0, xkey=None):
         r = states.temp.shape[0]
         dev = states.box.device
         rtt = pick_rt(r)
         sweep0 = int(states.sweep[0])
         diag = torch.zeros((), dtype=torch.int32, device=dev)
         tried = torch.zeros((), dtype=torch.int64, device=dev)
-        return rtt, -(-r // rtt), sweep0, kin_of(pot, dev), diag, tried
+        xkeys = (() if xkey is None
+                 else exchange_keys(xkey, sweep0, mod, nrecords))
+        draws = chunk_draws(chain_key(chain_base, seed0, sweep0),
+                            mod * nrecords, nvol, r, dev, shard, xkeys)
+        seeds = (int(seed0[0]), int(seed0[1]) + (shard or 0))
+        return (rtt, -(-r // rtt), sweep0, kin_of(pot, dev), diag, tried,
+                draws, seeds)
 
     def finish(recs, frames):
         recs = stack_records(recs)
@@ -226,14 +305,14 @@ def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
         return recs, frames
 
     if not exchange:
-        def run(states, slabs, count, shift, pot, cell_tabs, seed0, gen):
-            rtt, ntiles, sweep0, kin, diag, tried = start(states, pot)
+        def run(states, slabs, count, shift, pot, cell_tabs, seed0):
+            (rtt, ntiles, sweep0, kin, diag, tried, draws,
+             seeds) = start(states, pot, seed0)
             st = (states, slabs, count, shift, diag, tried)
             recs, frames = [], []
             for b in range(nrecords):
-                st, rec, frame = block_core(st, sweep0 + b * mod, kin,
-                                            cell_tabs, seed0, gen, rtt,
-                                            ntiles)
+                st, rec, frame = block_core(st, b, sweep0, kin, cell_tabs,
+                                            seeds, draws, rtt, ntiles)
                 recs.append(rec)
                 frames.append(frame)
             states, slabs, count, shift, diag, tried = st
@@ -245,21 +324,22 @@ def _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor, write_traj,
     if npress * ntemp <= 0:
         raise ValueError("the exchange runner needs the (P, T) grid shape")
 
-    def run_x(states, slabs, count, shift, slot_of, gen, pot, cell_tabs,
+    def run_x(states, slabs, count, shift, slot_of, xkey, pot, cell_tabs,
               t_grid, p_grid, seed0):
-        rtt, ntiles, sweep0, kin, diag, tried = start(states, pot)
+        (rtt, ntiles, sweep0, kin, diag, tried, draws,
+         seeds) = start(states, pot, seed0, xkey)
         st = (states, slabs, count, shift, diag, tried)
         recs, frames, hist, xacc = [], [], [], []
-        r = states.temp.shape[0]
+        xu = draws[3]
         for event_idx in range(nrecords):
-            st, rec, frame = block_core(st, sweep0 + event_idx * mod, kin,
-                                        cell_tabs, seed0, gen, rtt, ntiles)
+            st, rec, frame = block_core(st, event_idx, sweep0, kin,
+                                        cell_tabs, seeds, draws, rtt,
+                                        ntiles)
             states = st[0]
             hist.append(slot_of)
-            u = 1.0 - torch.rand((r,), generator=gen, device=slot_of.device)
             states, slot_of, n_acc = tempering.exchange_event(
-                states, slot_of, u, event_idx, npress, ntemp, t_grid,
-                p_grid, kb, p2e)
+                states, slot_of, xu[event_idx], event_idx, npress, ntemp,
+                t_grid, p_grid, kb, p2e)
             st = (states,) + st[1:]
             recs.append(rec)
             frames.append(frame)
@@ -282,14 +362,14 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
                        write_traj: bool = False, exchange: bool = False,
                        npress: int = 0, ntemp: int = 0,
                        vol_every: int = 1, rebin_every: int = 1,
-                       adapt: bool = True):
+                       adapt: bool = True, shard=None):
     """Build the LJ chunk runner.
 
     Without exchange:
-      ``run(states, slabs, count, shift, pot, cell_tabs, seed0, gen) ->
+      ``run(states, slabs, count, shift, pot, cell_tabs, seed0) ->
         (states, slabs, count, shift, recs, frames, diag, tried)``
     With exchange:
-      ``run(states, slabs, count, shift, slot_of, gen, pot, cell_tabs,
+      ``run(states, slabs, count, shift, slot_of, xkey, pot, cell_tabs,
         t_grid, p_grid, seed0) -> (states, slabs, count, shift, slot_of,
         recs, frames, hist, xacc, diag, tried)``
 
@@ -297,8 +377,10 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
     ``count`` (R, C); ``shift`` (3,) fractional grid shift; ``cell_tabs``
     (3, C*K) per-row cell coordinates (geom_tables) on the device;
     ``seed0`` two host ints, the base key of the in-kernel threefry stream
-    (the sweep counter is folded in, so chained chunks never replay it);
-    ``gen`` the torch.Generator of the host draws. ``diag`` and ``tried``
+    (the sweep counter is folded in, so chained chunks never replay it),
+    and of the host draws' key chain (module docstring); ``xkey`` (2,)
+    the exchange key. ``shard``: this shard's index in a sharded run
+    (parallel/cellmc_sharded.py), None otherwise. ``diag`` and ``tried``
     are device tensors; reading them is the caller's sync.
 
     ``vol_every``/``rebin_every``: the ``nvol`` volume trials run only on
@@ -309,8 +391,9 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
     counters accumulate over the chunk (the bench counts moves from them).
     """
 
-    def sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles):
+    def sweep_step(st, sweep_id, kin, cell_tabs, seed0, draws, rtt, ntiles):
         pot, pot3 = kin
+        u, ln_u, du = draws
         states, slabs, count, shift, diag, tried = st
         x, y, z, ids = slabs
         r = x.shape[0]
@@ -330,15 +413,15 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
 
         # --- volume trials (kernel B1; E(s x) exact) -----------------
         if nvol > 0 and sweep_id % vol_every == 0:
-            for _ in range(nvol):
-                vol, dv, ok, s = _vol_propose(states, gen)
+            for v in range(nvol):
+                vol, dv, ok, s = _vol_propose(states, u[v])
                 # params track the box accepted by an earlier trial (the
                 # stencil's +-L image correction reads them)
                 params = params_of(states, geom, kb)
                 sums = CK.total(geom, (x, y, z), params, pot3, s)
                 e_old, w_old, e_new = CK.combine_sums(sums, pot.eps, s)
                 acc = _vol_accept(states, e_old, e_new, vol, dv, ok,
-                                  geom.natoms, kb, p2e, gen)
+                                  geom.natoms, kb, p2e, ln_u[v])
                 sca = torch.where(acc, s, 1.0)[:, None]
                 x, y, z = _rescale((x, y, z), sca)
                 states = states.replace(
@@ -351,7 +434,7 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
 
         (x, y, z, ids), count, shift, diag, _ = _rebin(
             geom, rebin_every, sweep_id, (x, y, z, ids), count, shift,
-            states.box, cell_tabs, gen, diag)
+            states.box, cell_tabs, du, diag)
         states = states.replace(sweep=states.sweep + 1)
         return (states, (x, y, z, ids), count, shift, diag, tried)
 
@@ -365,7 +448,8 @@ def make_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
         return e, w, slabs
 
     return _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor,
-                         write_traj, exchange, npress, ntemp, adapt,
+                         write_traj, exchange, npress, ntemp, adapt, nvol,
+                         CHAIN_BASE["pair", exchange], shard,
                          lambda pot, dev: (pot, pot.pot3(dev)), sweep_step,
                          record_totals)
 
@@ -380,7 +464,7 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
                     write_traj: bool = False, exchange: bool = False,
                     npress: int = 0, ntemp: int = 0,
                     vol_every: int = 1, rebin_every: int = 1,
-                    adapt: bool = True):
+                    adapt: bool = True, shard=None):
     """EAM twin of ``make_cellmc_run_fn``, with the same two signatures;
     ``pot`` is the ``EAMCheb`` (models/eam_cheb.py) and ``slabs`` =
     (x, y, z, ids, rho) leading-R, rho the per-slot density cache (exact
@@ -394,8 +478,9 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
     pass with the virial.
     """
 
-    def sweep_step(st, sweep_id, kin, cell_tabs, seed0, gen, rtt, ntiles):
+    def sweep_step(st, sweep_id, kin, cell_tabs, seed0, draws, rtt, ntiles):
         scal, series = kin
+        u, ln_u, du = draws
         states, slabs, count, shift, diag, tried = st
         x, y, z, ids, rho = slabs
         r = x.shape[0]
@@ -420,14 +505,14 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
             st1, rho = CE.total(geom, (x, y, z), params, scal, series, ones,
                                 with_virial=False)
             states = states.replace(pe=st1[:, 0])        # exact e_old
-            for _ in range(nvol):
-                vol, dv, ok, s = _vol_propose(states, gen)
+            for v in range(nvol):
+                vol, dv, ok, s = _vol_propose(states, u[v])
                 params = params_of(states, geom, kb)
                 stt, rho_s = CE.total(geom, (x, y, z), params, scal, series,
                                       s, with_virial=False)
                 e_new = stt[:, 0]
                 acc = _vol_accept(states, states.pe, e_new, vol, dv, ok,
-                                  geom.natoms, kb, p2e, gen)
+                                  geom.natoms, kb, p2e, ln_u[v])
                 sca = torch.where(acc, s, 1.0)[:, None]
                 x, y, z = _rescale((x, y, z), sca)
                 rho = torch.where(acc[:, None], rho_s, rho)
@@ -440,7 +525,7 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
 
         (x, y, z, ids), count, shift, diag, extras = _rebin(
             geom, rebin_every, sweep_id, (x, y, z, ids), count, shift,
-            states.box, cell_tabs, gen, diag, extras=(rho,))
+            states.box, cell_tabs, du, diag, extras=(rho,))
         if extras:
             (rho,) = extras
         states = states.replace(sweep=states.sweep + 1)
@@ -456,6 +541,7 @@ def make_eam_run_fn(kb, p2e, geom, mod: int, nrecords: int,
         return st[:, 0], st[:, 1], slabs[:4] + (rho,)
 
     return _chunk_runner(geom, kb, p2e, mod, nrecords, targets, factor,
-                         write_traj, exchange, npress, ntemp, adapt,
+                         write_traj, exchange, npress, ntemp, adapt, nvol,
+                         CHAIN_BASE["eam", exchange], shard,
                          lambda pot, dev: CE.eam_pack(pot, dev)[:2],
                          sweep_step, record_totals)

@@ -12,8 +12,8 @@ int64 (``ops/jrandom.py``): (2,) for a serial chain, on the host, where
 the serial engine derives every draw of a sweep from it before the
 sweep's moves; (R, 2) for a gather ensemble (``ensemble_init`` with a
 ``seed``), on the ensemble's device, where the checkerboard passes draw.
-The cellmc path leaves it ``None``: its host draws come from one
-``torch.Generator`` per run (sampler/cellmc.py).
+The cellmc path leaves it ``None``: its host draws come from a key chain
+of the run's seed and the sweep counter (sampler/cellmc.py).
 
 CONTRACT (as in the JAX package): ``pe`` and ``virial`` are exact at
 every record point; between records the cellmc engine carries an

@@ -10,7 +10,8 @@ tempering weight
 
 Pairing alternates even/odd along T, then along P. ``exchange_event``
 takes the uniforms ``u`` as an argument, drawn by the caller (the cellmc
-engine's ``torch.Generator``; the tests feed JAX's own uniforms).
+engine draws a chunk's events at once from the JAX key chain; the tests
+feed JAX's own uniforms).
 ``exchange_event_keyed`` draws them from a ``jax.random`` key as the JAX
 ``propose_swaps`` does, ``uniform(key, grid shape, 1e-38, 1)``, so its
 swaps and acceptances equal the JAX package's (the gather engine).

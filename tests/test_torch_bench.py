@@ -86,7 +86,7 @@ def test_adapt_off_keeps_counters_and_steps(adapt):
         ncyc=SC.default_ncyc(s.geom), nvol=1, exchange=False, adapt=adapt)
     dpos0 = s.states.dpos.clone()
     states, *_ = run(s.states, s.slabs, s.slab_count, s.shift, s.pot,
-                     s.cell_tabs, (cfg.seed, cfg.seed + 7), s.gen)
+                     s.cell_tabs, (cfg.seed, cfg.seed + 7))
     if adapt:
         assert int(states.ntp.sum()) == 0          # zeroed every record
         assert not torch.equal(states.dpos, dpos0)

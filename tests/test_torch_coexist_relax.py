@@ -19,9 +19,12 @@ fluctuation passes:
 
 In both packages the prepared liquid keeps nearly the lattice's density
 (0.976-0.999) and the liquid row's gap over the solid row falls from
-0.08-0.26 in the first chunk to -0.02..+0.05 (JAX) and 0.02-0.16 (port)
-in the second, the first measured chunk of ``coexist_run --fast``: the
-reference protocol's liquid row freezes (ROADMAP C9).
+0.13-0.22 in the first chunk to -0.02..+0.05 in the second, the first
+measured chunk of ``coexist_run --fast``: the reference protocol's
+liquid row freezes (ROADMAP C9). The cellmc engine draws the JAX key
+chain, so the port's chains track the JAX chains of the same seeds to
+~1e-5 PE/atom through the second chunk; a decision at an f32 margin can
+part them in the third.
 
 Sampling runs on one torch thread (the tests share the machine).
 """

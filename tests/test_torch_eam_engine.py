@@ -25,6 +25,7 @@ from neuralmelting_tpu_torch.models import eam as TE
 from neuralmelting_tpu_torch.models import eam_cheb as TEC
 from neuralmelting_tpu_torch.models import eam_gen as TG
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
+from neuralmelting_tpu_torch.ops import jrandom
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 
 
@@ -100,11 +101,11 @@ def test_eam_chunk_keeps_density_and_records_exact(table, monkeypatch,
         setup.us.kb, setup.us.p2e, setup.geom, mod=mod, nrecords=nrec,
         ncyc=2, nvol=2, exchange=exchange, npress=1, ntemp=3,
         write_traj=True)
-    gen = torch.Generator().manual_seed(4)
     if exchange:
         (states, slabs, count, shift, slot_of, recs, frames, hist, xacc,
          diag, tried) = run(setup.states, setup.slabs, setup.slab_count,
-                            setup.shift, setup.slot_of, gen, setup.pot,
+                            setup.shift, setup.slot_of, jrandom.key(4),
+                            setup.pot,
                             setup.cell_tabs, setup.t_grid, setup.p_grid,
                             (11, 12))
         assert hist.shape == (nrec, 3) and xacc.shape == (nrec,)
@@ -115,8 +116,7 @@ def test_eam_chunk_keeps_density_and_records_exact(table, monkeypatch,
     else:
         (states, slabs, count, shift, recs, frames, diag,
          tried) = run(setup.states, setup.slabs, setup.slab_count,
-                      setup.shift, setup.pot, setup.cell_tabs, (11, 12),
-                      gen)
+                      setup.shift, setup.pot, setup.cell_tabs, (11, 12))
     assert int(diag) == 0
     assert len(errs) == nrec * mod and max(errs) < 5e-5, errs
     # the last record's energetics are a fresh pass on the final slabs

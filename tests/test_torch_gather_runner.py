@@ -67,7 +67,7 @@ def _same_chunk(a, b):
 def chunked(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("g") / "g.ckpt.npz")
     s = runner.setup_run(CFG, device="cpu")
-    assert s.engine == "gather" and s.nls is not None and s.gen is None
+    assert s.engine == "gather" and s.nls is not None
     s = runner.run_sampling(s, checkpoint_path=path, write_files=False)[0]
     return s, path
 
