@@ -76,6 +76,10 @@ def main(argv=None):
     ap.add_argument("--nprocs", type=int, default=None)
     ap.add_argument("--procid", type=int, default=None)
     args = ap.parse_args(argv)
+    if (args.coordinator is None) != (args.nprocs is None) or \
+            (args.nprocs is None) != (args.procid is None):
+        raise ValueError("a multi-process run needs --coordinator, "
+                         "--nprocs and --procid together")
     if args.coordinator:
         args.device = mesh.rank_device(args.device, args.procid)
         mesh.init_multihost(args.coordinator, args.nprocs, args.procid,

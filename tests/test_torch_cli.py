@@ -17,8 +17,9 @@
   rdf npz give T_m within one grid spacing (as test_slice_tm_matches_jax:
   the classifiers start from different initial weights); ``post
   --no-plot`` prints one row a pressure;
-- ``--engine dense`` and ``--coordinator`` raise, naming their ROADMAP
-  items; without CUDA the stages' default device raises. The staged runs
+- ``--engine dense`` raises, naming its ROADMAP item, and the
+  multi-process flags one without the others; without CUDA the stages'
+  default device raises. The staged runs
   name ``--engine cellmc`` (the default is gather, as in the JAX package,
   for LJ and EAM; tests/test_torch_gather_runner.py and
   tests/test_torch_gather_eam_runner.py run it).
@@ -299,7 +300,11 @@ def test_remcmc_unported_engines_raise(tmp_path, engine, item):
 @pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
                                    ["--nprocs", "2", "--procid", "0"]])
 def test_remcmc_multiprocess_raises(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    """The multi-process flags come together: one without the others
+    raises before any process group is joined (two ranks run in
+    tests/test_torch_multiproc.py)."""
+    with pytest.raises(ValueError, match="--coordinator, --nprocs and "
+                                         "--procid together"):
         remcmc.main(MINI + ["-o", str(tmp_path), "--device", "cpu"] + flags)
 
 
