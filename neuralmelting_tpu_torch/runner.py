@@ -32,7 +32,8 @@ in the single-process layout, which a single-process run resumes.
 
 Not here yet, each named with the ROADMAP item that brings it: the
 dense engine (A14, not ported); under more than one process the gather
-engine, ``restore_setup`` and ``exchange=False`` (A12, rest). Unlike the
+engine and ``restore_setup`` (A12, rest). ``exchange=False`` is refused
+there with a ValueError, as in the JAX runner. Unlike the
 JAX runner there is no compile cache (nothing is traced) and no
 scoped-VMEM guard (a TPU compiler limit).
 """
@@ -452,8 +453,9 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     replica-ordered, frames (positions (nrec, R, N, 3), boxes (nrec, R, 3))
     or None, hist (nrec, R) the replica -> slot map at each record, xacc
     (nrec,) accepted swaps, diag the chunk's diagnostic bits (int).
-    ``exchange=False`` keeps every replica on its slot (cellmc only, as
-    in the JAX runner). Then, as in the JAX runner: a ``sampling_chunk``
+    ``exchange=False`` keeps every replica on its slot; as in the JAX
+    runner it is offered on the single-process cellmc engine only, and
+    elsewhere raises ValueError. Then, as in the JAX runner: a ``sampling_chunk``
     event to ``metrics`` (a ``utils.MetricsLogger``), the slot files into
     ``outdir`` when ``write_files``, and a checkpoint to
     ``checkpoint_path``. Under more than one process the returned recs,
@@ -465,14 +467,13 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     npress, ntemp = len(setup.press), len(setup.temp)
     nrecords = nrecords or cfg.nsmpl
     multi = _multi()
-    if multi and not exchange:
-        raise NotImplementedError(
-            f"exchange=False under more than one process: {_A12_REST}")
+    if not exchange and (setup.engine != "cellmc" or multi):
+        # as the JAX runner, on every rank before any collective
+        raise ValueError(
+            "exchange=False is offered on the single-process cellmc "
+            "engine only (coexistence experiments run there); got "
+            f"engine={setup.engine!r}, processes={mesh.process_count()}")
     if setup.engine == "gather":
-        if not exchange:
-            raise ValueError(
-                "exchange=False is offered on the cellmc engine only "
-                "(coexistence experiments run there); got engine='gather'")
         setup, recs, frames, hist, xacc, diag_host = _run_gather(
             setup, nrecords, write_traj)
     else:

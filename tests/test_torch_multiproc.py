@@ -5,9 +5,10 @@ each.
   rank 0 alone prints the summary and writes one .thrm/.traj per slot,
   one metrics line and the checkpoint; the checkpoint holds the whole
   ensemble in the single-process layout and resumes in one process.
-- Under two processes the gather engine, ``restore_setup`` and
-  ``exchange=False`` raise NotImplementedError naming ROADMAP A12 (rest),
-  and a chunk whose ranks raise different diag bits (CB_INVALID on one,
+- Under two processes the gather engine and ``restore_setup`` raise
+  NotImplementedError naming ROADMAP A12 (rest), ``exchange=False``
+  raises the JAX runner's ValueError (ROADMAP C14), and a chunk whose
+  ranks raise different diag bits (CB_INVALID on one,
   SLAB_OVERFLOW on the other) returns their bitwise OR on both
   (tests/torch_shard_worker.py, mode "c13"; ROADMAP C13).
 """
@@ -114,6 +115,7 @@ def test_checkpoint_is_whole_and_resumes_in_one_process(two_ranks):
 
 def test_refusals_and_diag_or_under_two_processes(two_ranks):
     _, _, c13 = two_ranks
-    assert sorted(c13["refused"].tolist()) == ["gather", "no_exchange",
-                                               "restore"]
+    assert sorted(c13["refused"].tolist()) == [
+        "gather:NotImplementedError", "no_exchange:ValueError",
+        "restore:NotImplementedError"]
     assert int(c13["diag"]) == SC.DIAG_CB_INVALID | SC.DIAG_SLAB_OVERFLOW

@@ -8,9 +8,10 @@ mode "chunk": join the gloo group on 127.0.0.1:<port>, take this rank's
 shard of the whole-R inputs in <in.npz> (written by
 tests/torch_chunk_case.py ``save_inputs``), run one chunk of
 parallel/cellmc_sharded.py and let rank 0 write the gathered outputs.
-mode "c13": the refusals under two processes (the gather engine,
-``restore_setup``, ``exchange=False``) and a chunk in which the two ranks
-raise different diag bits; rank 0 writes what it saw.
+mode "c13": the refusals under two processes (the gather engine and
+``restore_setup``, still to come, and ``exchange=False``, which the JAX
+runner refuses too) and a chunk in which the two ranks raise different
+diag bits; rank 0 writes what it saw.
 """
 
 import os
@@ -98,19 +99,23 @@ def c13(inp, out):
     cfg = RunConfig(name="c13", element="LJ", ncells=(4, 4, 4), npress=1,
                     ntemp=2, press=(1.0,), temp=(0.7, 1.3), nsmpl=1, mod=1,
                     seed=3)
-    for what, call in (
-            ("gather", lambda: runner.setup_run(cfg, device="cpu")),
+    # what each refusal must say: the item still to come, or the JAX
+    # runner's refusal
+    for what, call, kind, says in (
+            ("gather", lambda: runner.setup_run(cfg, device="cpu"),
+             NotImplementedError, "A12 (rest)"),
             ("restore", lambda: runner.restore_setup(
                 runner.setup_run(cfg, engine="cellmc", device="cpu"),
-                "none.npz")),
+                "none.npz"), NotImplementedError, "A12 (rest)"),
             ("no_exchange", lambda: runner.run_sampling(
                 runner.setup_run(cfg, engine="cellmc", device="cpu"),
-                exchange=False))):
+                exchange=False), ValueError,
+             "single-process cellmc engine only")):
         try:
             call()
-        except NotImplementedError as e:
-            if "A12 (rest)" in str(e):
-                seen.append(what)
+        except kind as e:
+            if says in str(e):
+                seen.append(f"{what}:{kind.__name__}")
     # the two ranks raise different bits: CB_INVALID on rank 0,
     # SLAB_OVERFLOW on rank 1
     bit = (SC.DIAG_CB_INVALID, SC.DIAG_SLAB_OVERFLOW)[rank]
