@@ -3046,7 +3046,7 @@ def sharded_rank(rank, port, table, queue):
     import traceback
     from neuralmelting_tpu_torch.parallel import mesh
     try:
-        dev = mesh.rank_device("cuda", rank)
+        dev = mesh.rank_device("cuda", SHARD_RANKS, rank)
         backend = mesh.init_multihost(f"127.0.0.1:{port}", SHARD_RANKS,
                                       rank, device=dev)
         try:

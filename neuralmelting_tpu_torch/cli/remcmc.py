@@ -70,9 +70,10 @@ def main(argv=None):
                          "device with --nprocs/--procid. The cellmc "
                          "engine samples each process's shard of the "
                          "replicas, process 0 writes all outputs; the "
-                         "device is cuda:procid %% device_count() unless "
-                         "--device names one. NCCL where each process "
-                         "owns its card, else gloo")
+                         "device is cuda:<local rank> (LOCAL_RANK, else "
+                         "procid, modulo the node's cards) unless "
+                         "--device names one. NCCL where each process of "
+                         "a node owns its card, else gloo")
     ap.add_argument("--nprocs", type=int, default=None)
     ap.add_argument("--procid", type=int, default=None)
     args = ap.parse_args(argv)
@@ -81,7 +82,8 @@ def main(argv=None):
         raise ValueError("a multi-process run needs --coordinator, "
                          "--nprocs and --procid together")
     if args.coordinator:
-        args.device = mesh.rank_device(args.device, args.procid)
+        args.device = mesh.rank_device(args.device, args.nprocs,
+                                       args.procid)
         mesh.init_multihost(args.coordinator, args.nprocs, args.procid,
                             device=args.device)
     try:

@@ -9,16 +9,21 @@ index is its rank. Every process builds the identical full-R ensemble
 tempering exchange and the output writers need whole-R values, which
 ``all_gather`` / ``host_fetch`` bring to every rank.
 
-The backend follows the layout (``pick_backend``): NCCL where each rank
-owns its card, gloo on the CPU and where ranks share one card (NCCL
-refuses two ranks on one device). Under gloo a collective's tensors go
-through the host; they are the O(R) scalars of a record block, while
-the kernels and the sampling stay on each rank's device.
+The backend follows the layout of this rank's node (``pick_backend``):
+NCCL where each rank of the node owns its card, gloo on the CPU and
+where ranks share one card (NCCL refuses two ranks on one device). A
+rank's place on its node is its local rank among the node's local world
+size: ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` where the launcher sets
+them (torchrun does), else the rank and the world size, as on one node.
+Under gloo a collective's tensors go through the host; they are the O(R)
+scalars of a record block, while the kernels and the sampling stay on
+each rank's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 
 import torch
@@ -35,25 +40,37 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def local_layout(num_processes: int, process_id: int) -> tuple:
+    """(local rank, local world size) of this rank on its node: the
+    launcher's ``LOCAL_WORLD_SIZE`` (else ``num_processes``) and
+    ``LOCAL_RANK`` (else ``process_id`` modulo the local world size,
+    ranks numbered node by node)."""
+    size = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+    return int(os.environ.get("LOCAL_RANK", process_id % size)), size
+
+
 def pick_backend(device, num_processes: int, process_id: int) -> str:
-    """"nccl" where each rank owns its card (no more ranks than cards:
-    rank i on cuda:i), "gloo" on the CPU and where ranks share a card.
-    The choice depends on the world size and the card count alone, so
-    every rank makes the same one."""
+    """"nccl" where each rank of the node owns its card (no more local
+    ranks than the node's cards: local rank i on cuda:i), "gloo" on the
+    CPU and where ranks share a card. The choice depends on the local
+    world size and the node's card count alone, so every rank of a
+    uniform launch makes the same one."""
     dev = torch.device(device)
-    if dev.type != "cuda" or num_processes > torch.cuda.device_count():
+    local, size = local_layout(num_processes, process_id)
+    if dev.type != "cuda" or size > torch.cuda.device_count():
         return "gloo"
-    if dev.index not in (None, process_id):
-        raise ValueError(f"rank {process_id} on {dev}: with a card a rank, "
-                         f"rank i runs on cuda:i")
+    if dev.index not in (None, local):
+        raise ValueError(f"rank {process_id} (local rank {local}) on {dev}: "
+                         "with a card a rank, local rank i runs on cuda:i")
     return "nccl"
 
 
-def rank_device(device, process_id: int) -> str:
-    """A rank's device: ``cuda:rank % device_count()`` for a bare "cuda",
-    else ``device`` as given."""
+def rank_device(device, num_processes: int, process_id: int) -> str:
+    """A rank's device: ``cuda:<local rank % the node's card count>`` for
+    a bare "cuda", else ``device`` as given."""
     if str(device) == "cuda" and torch.cuda.is_available():
-        return f"cuda:{process_id % torch.cuda.device_count()}"
+        local, _ = local_layout(num_processes, process_id)
+        return f"cuda:{local % torch.cuda.device_count()}"
     return str(device)
 
 
@@ -70,7 +87,7 @@ def init_multihost(coordinator=None, num_processes=None, process_id=None,
         raise ValueError("a multi-process run needs --nprocs and --procid")
     backend = pick_backend(device, num_processes, process_id)
     if backend == "nccl":
-        torch.cuda.set_device(process_id)
+        torch.cuda.set_device(local_layout(num_processes, process_id)[0])
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
     print(f"[mesh] process {process_id} of {num_processes} on {device}: "
