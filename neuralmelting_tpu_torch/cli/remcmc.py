@@ -10,7 +10,9 @@ checkpoint and ``metrics.jsonl``; the last line printed is a JSON summary.
 With ``--coordinator HOST:PORT --nprocs N --procid I`` (one process per
 device, each started with its own ``--procid``) the cellmc engine samples
 each process's shard of the replicas (parallel/cellmc_sharded.py) and
-process 0 alone writes the files and prints the summary.
+process 0 alone writes the files and prints the summary; ``--restart``
+resumes a checkpoint of one process or of several, and ``--profile``
+writes one trace a process.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from neuralmelting_tpu_torch.utils import MetricsLogger
 
 def _trace(profile_dir):
     """A torch.profiler context writing a Chrome trace into
-    ``profile_dir`` on exit, or a null context."""
+    ``profile_dir`` on exit, or a null context: ``remcmc.trace.json``,
+    and under more than one process one a rank,
+    ``remcmc.rank<I>.trace.json``."""
     if not profile_dir:
         return contextlib.nullcontext()
     import torch
@@ -39,10 +43,11 @@ def _trace(profile_dir):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
+    name = ("remcmc.trace.json" if mesh.process_count() == 1
+            else f"remcmc.rank{mesh.process_index()}.trace.json")
 
     def write(prof):
-        prof.export_chrome_trace(os.path.join(profile_dir,
-                                              "remcmc.trace.json"))
+        prof.export_chrome_trace(os.path.join(profile_dir, name))
 
     return profile(activities=acts, on_trace_ready=write)
 

@@ -101,6 +101,17 @@ def shutdown():
         dist.destroy_process_group()
 
 
+def barrier(device) -> None:
+    """Wait for every rank (a no-op without a process group); under NCCL
+    on this rank's card."""
+    if process_count() == 1:
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.device(device).index])
+    else:
+        dist.barrier()
+
+
 def _via_host(x: torch.Tensor) -> bool:
     """Whether a collective on ``x`` goes through the host: a device
     tensor under gloo."""

@@ -28,14 +28,15 @@ Multi-process runs (``parallel/mesh.init_multihost``, one process per
 device): the cellmc engine keeps each rank's shard of the replicas and
 runs ``parallel/cellmc_sharded.py``; the chunk's records, slot history
 and checkpoint are gathered on every rank and rank 0 alone writes them,
-in the single-process layout, which a single-process run resumes.
+in the single-process layout. That checkpoint resumes in one process or
+in several, and so does a single-process one: ``restore_setup`` loads
+it whole on every rank and keeps the rank's shard. ``exchange=False`` is
+refused there with a ValueError, as in the JAX runner.
 
 Not here yet, each named with the ROADMAP item that brings it: the
-dense engine (A14, not ported); under more than one process the gather
-engine and ``restore_setup`` (A12, rest). ``exchange=False`` is refused
-there with a ValueError, as in the JAX runner. Unlike the
-JAX runner there is no compile cache (nothing is traced) and no
-scoped-VMEM guard (a TPU compiler limit).
+dense engine (A14, not ported); the gather engine under more than one
+process (A12 item 3b). Unlike the JAX runner there is no compile cache
+(nothing is traced) and no scoped-VMEM guard (a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -75,8 +76,7 @@ _LATER = {
               "chain runs through sampler/serial.py, see golden.py",
     "dense": "ROADMAP A14 (the dense/MXU engine is not ported)",
 }
-_A12_REST = ("ROADMAP A12 (rest): the gather engine over a process group "
-             "and re-sharded restart")
+_A12_GATHER = "ROADMAP A12 item 3b: the gather engine over a process group"
 
 
 def _multi() -> bool:
@@ -171,7 +171,7 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
     if engine == "gather" and _multi():
         raise NotImplementedError(
-            f"the gather engine under more than one process: {_A12_REST}")
+            f"the gather engine under more than one process: {_A12_GATHER}")
     el = ELEMENTS[cfg.element]
     if cfg.phmc > 0 and engine == "cellmc":
         raise ValueError(
@@ -344,33 +344,48 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     compressed box), with a warning. Either way the host draws go on
     from the key chain of ``cfg.seed`` at the states' sweep counter, on
     any device. Warns when the stored config differs from the current
-    one."""
-    if _multi():
-        raise NotImplementedError(
-            f"restore_setup under more than one process: {_A12_REST}")
+    one.
+
+    Under more than one process (cellmc; the gather engine does not get
+    here): a barrier first, so that no rank reads a checkpoint rank 0 is
+    still writing; then every rank loads the same whole-R checkpoint,
+    keeps its shard of the states, ``slot_of`` and slabs, and rebuilds
+    the energies (and the EAM density slab) on that shard, as the JAX
+    runner restores whole and shards again. A checkpoint whose ensemble
+    is not this run's raises the same ValueError on every rank."""
+    mesh.barrier(setup.device)
     states, slot_of, cfg_json, extra = ckpt.load(checkpoint_path,
                                                  setup.device)
     if cfg_json not in ("{}", setup.cfg.to_json()):
         warnings.warn("checkpoint was written with a different RunConfig; "
                       "proceeding with the current flags", stacklevel=2)
-    if states.pos.shape != setup.states.pos.shape:
+    r = len(setup.press) * len(setup.temp)
+    if tuple(states.pos.shape) != (r, setup.natoms, 3):
         raise ValueError(
             f"checkpoint ensemble {tuple(states.pos.shape)} does not fit "
-            f"this run's {tuple(setup.states.pos.shape)} (replicas, atoms)")
+            f"this run's {(r, setup.natoms, 3)} (replicas, atoms)")
     if setup.engine == "gather":
         return _restore_gather(setup, states, slot_of, extra)
+    dev = setup.device
+    xyz = ids = None
+    if "slab_ids" in extra:
+        xyz = torch.as_tensor(extra["slab_xyz"], dtype=torch.float32,
+                              device=dev)
+        ids = torch.as_tensor(extra["slab_ids"], dtype=torch.int32,
+                              device=dev)
+    if _multi():
+        # every rank loaded the same whole-R checkpoint: keep this
+        # rank's shard of it
+        states, slot_of, xyz, ids = mesh.to_global(
+            (states, slot_of, xyz, ids), r)
     setup = dataclasses.replace(setup, states=states, slot_of=slot_of)
-    if "slab_ids" not in extra:
+    if ids is None:
         warnings.warn(f"checkpoint {checkpoint_path} holds no slabs: its "
                       "positions are re-binned at grid shift 0",
                       RuntimeWarning, stacklevel=2)
         return _rebind_cellmc(setup, setup.geom)
     nx, ny, nz, kcap = (int(v) for v in extra["geom"])
     geom = dataclasses.replace(setup.geom, ncell=(nx, ny, nz), kcap=kcap)
-    dev = setup.device
-    xyz = torch.as_tensor(extra["slab_xyz"], dtype=torch.float32,
-                          device=dev)
-    ids = torch.as_tensor(extra["slab_ids"], dtype=torch.int32, device=dev)
     count = (ids >= 0).reshape(ids.shape[0], geom.ncells, kcap).sum(
         dim=2, dtype=torch.int32)
     shift = torch.as_tensor(extra["shift"], dtype=torch.float32, device=dev)

@@ -8,14 +8,24 @@ mode "chunk": join the gloo group on 127.0.0.1:<port>, take this rank's
 shard of the whole-R inputs in <in.npz> (written by
 tests/torch_chunk_case.py ``save_inputs``), run one chunk of
 parallel/cellmc_sharded.py and let rank 0 write the gathered outputs.
-mode "c13": the refusals under two processes (the gather engine and
-``restore_setup``, still to come, and ``exchange=False``, which the JAX
-runner refuses too) and a chunk in which the two ranks raise different
-diag bits; rank 0 writes what it saw.
+mode "c13": the refusals under two processes (the gather engine, still
+to come, and ``exchange=False``, which the JAX runner refuses too) and a
+chunk in which the two ranks raise different diag bits; rank 0 writes
+what it saw.
+mode "restart": ``runner.restore_setup`` under two processes, <in.npz>
+standing for the directory that holds the rc 3.8 Al table and the
+single-process checkpoints of ``RESTART_CFGS["lj"]`` (``one.npz``, and
+``noslab.npz`` without the port's extras). For LJ and EAM, two chunks,
+the first checkpointed, then the second again from that checkpoint on
+fresh set-ups; the 1-process checkpoint restored and one chunk run on
+it; the one without slabs likewise; a run of another R refused. Rank 0
+writes every gathered outcome (``restart_outcome``).
 """
 
+import dataclasses
 import os
 import sys
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -35,6 +45,16 @@ from neuralmelting_tpu_torch.sampler import cellmc as SC  # noqa: E402
 from neuralmelting_tpu_torch.sampler.state import (FIELDS,  # noqa: E402
                                                    state_from_numpy)
 
+RESTART_CFGS = {
+    "lj": RunConfig(name="rs", element="LJ", ncells=(4, 4, 4), npress=2,
+                    press=(1.0, 4.0), ntemp=2, temp=(0.6, 1.4), nsmpl=2,
+                    mod=3, seed=5, vol_every=1, rebin_every=1),
+    "eam": RunConfig(name="rs", element="AL", ncells=(4, 4, 4), npress=2,
+                     press=(1.0, 5000.0), ntemp=2, temp=(600.0, 1400.0),
+                     nsmpl=2, mod=2, seed=4, dpos0=0.15, dvol0=0.002,
+                     vol_every=1, rebin_every=1),
+}
+TABLE = "al38.eam.alloy"
 CHEB = ("rc", "u_lo", "u_hi", "rho_hi", "q_lo", "c_phi", "c_phid", "c_rho",
         "c_rhod", "c_f", "c_fd")
 
@@ -103,10 +123,7 @@ def c13(inp, out):
     # runner's refusal
     for what, call, kind, says in (
             ("gather", lambda: runner.setup_run(cfg, device="cpu"),
-             NotImplementedError, "A12 (rest)"),
-            ("restore", lambda: runner.restore_setup(
-                runner.setup_run(cfg, engine="cellmc", device="cpu"),
-                "none.npz"), NotImplementedError, "A12 (rest)"),
+             NotImplementedError, "A12 item 3b"),
             ("no_exchange", lambda: runner.run_sampling(
                 runner.setup_run(cfg, engine="cellmc", device="cpu"),
                 exchange=False), ValueError,
@@ -126,13 +143,83 @@ def c13(inp, out):
         np.savez(out, refused=np.asarray(seen), diag=int(out_[9]))
 
 
+def restart_outcome(setup, outs, tag):
+    """The gathered outcome of a chunk (``run_sampling``'s returns after
+    the setup) and of the setup it left, as numpy arrays keyed
+    ``<tag>_<name>``: records ``r_*``, frames, hist, xacc, diag, states
+    ``s_*``, slot_of, shift and the slabs (a collective on every rank)."""
+    r = setup.t_grid.shape[0]
+    states, slot_of = mesh.host_fetch((setup.states, setup.slot_of), r)
+    xyz = mesh.all_gather(torch.stack(tuple(setup.slabs[:3]), dim=1))
+    ids = mesh.all_gather(setup.slabs[3])
+    got = {"s_" + f: getattr(states, f) for f in FIELDS}
+    got.update(slot_of=slot_of, shift=setup.shift, slab_xyz=xyz,
+               slab_ids=ids)
+    if outs is not None:
+        recs, frames, hist, xacc, diag = outs
+        got.update({"r_" + k: v for k, v in vars(recs).items()})
+        got.update(frame_pos=frames[0], frame_box=frames[1], hist=hist,
+                   xacc=xacc, diag=torch.tensor(diag))
+    return {f"{tag}_{k}": v.numpy() for k, v in got.items()}
+
+
+def restart(d, out):
+    res = {}
+    table = os.path.join(d, TABLE)
+
+    def fresh(cfg):
+        return runner.setup_run(cfg, setfl=table, engine="cellmc",
+                                device="cpu")
+
+    # 2 -> 2: the second chunk uninterrupted (a), then again from the
+    # first chunk's checkpoint on a fresh set-up (b)
+    for style, cfg in RESTART_CFGS.items():
+        ck = os.path.join(d, f"{style}.two.npz")
+        a = runner.run_sampling(fresh(cfg), write_files=False,
+                                checkpoint_path=ck)[0]
+        a, *outs = runner.run_sampling(a, write_files=False)
+        res.update(restart_outcome(a, outs, f"{style}_a"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")      # no re-binning, no warning
+            b = runner.restore_setup(fresh(cfg), ck)
+        b, *outs = runner.run_sampling(b, write_files=False)
+        res.update(restart_outcome(b, outs, f"{style}_b"))
+    # 1 -> 2: the restored shards, then one chunk on them
+    lj = RESTART_CFGS["lj"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        s = runner.restore_setup(fresh(lj), os.path.join(d, "one.npz"))
+    res.update(restart_outcome(s, None, "one_restored"))
+    s, *outs = runner.run_sampling(s, write_files=False, nrecords=1)
+    res.update(restart_outcome(s, outs, "one_resumed"))
+    # the JAX layout, no slabs: a warning, a re-bin at shift 0
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        s = runner.restore_setup(fresh(lj), os.path.join(d, "noslab.npz"))
+    warned = any("holds no slabs" in str(w.message) for w in seen)
+    res.update(restart_outcome(s, None, "noslab_restored"))
+    s, *outs = runner.run_sampling(s, write_files=False, nrecords=1)
+    res.update(restart_outcome(s, outs, "noslab_resumed"))
+    # another R: a ValueError on every rank, and each goes on
+    other = dataclasses.replace(lj, ntemp=4, temp=(0.6, 0.8, 1.1, 1.4))
+    refused = False
+    try:
+        runner.restore_setup(fresh(other), os.path.join(d, "one.npz"))
+    except ValueError as e:
+        refused = "does not fit" in str(e)
+    flags = mesh.all_gather(torch.tensor([[int(warned), int(refused)]]))
+    if mesh.process_index() == 0:
+        np.savez(out, noslab_warned=flags[:, 0].numpy(),
+                 wrong_r_refused=flags[:, 1].numpy(), **res)
+
+
 def main():
     port, rank, nprocs, mode, inp, out = sys.argv[1:7]
     torch.set_num_threads(1)
     mesh.init_multihost(f"127.0.0.1:{port}", int(nprocs), int(rank),
                         device="cpu")
     try:
-        {"chunk": chunk, "c13": c13}[mode](inp, out)
+        {"chunk": chunk, "c13": c13, "restart": restart}[mode](inp, out)
     finally:
         mesh.shutdown()
     assert "jax" not in sys.modules and "neuralmelting_tpu" not in \
