@@ -229,6 +229,14 @@ Phases, in order (any failed check exits non-zero):
                    permutations of 0..R-1, the record pe of replicas 0
                    and R-1 against a brute-force total of the gathered
                    positions (LJ 0.05 + 5e-4 |E|, EAM 0.02 + 1e-4 |E|);
+                   the first chunk writes a checkpoint (rank 0), and a
+                   fresh set-up on each rank restores it
+                   (runner.restore_setup: barrier, whole load, the rank's
+                   shard) and runs the second chunk again, which must
+                   equal the first run of it bit for bit (records, hist,
+                   xacc, diag and the gathered pos, box, pe, slot_of),
+                   B1/B2 or B3/B4 launched again; the checkpoint's MB and
+                   the restore's seconds a rank;
                    a rank that fails or passes SHARD_TIMEOUT fails the
                    phase with its traceback, and neither may import jax
                    or the JAX package; seconds a chunk and moves/s a rank
@@ -306,6 +314,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2963,12 +2972,14 @@ def brute_pe(style, pot, pos, box):
     return float(0.5 * phi.double().sum() + f.double().sum())
 
 
-def two_chunks(cfg, setfl, dev):
-    """set-up, one chunk, then a timed one: (setup, outputs of the timed
-    chunk, its seconds, its attempted moves, the first chunk's diag)."""
+def two_chunks(cfg, setfl, dev, checkpoint=None):
+    """set-up, one chunk (checkpointed into ``checkpoint`` if given), then
+    a timed one: (setup, outputs of the timed chunk, its seconds, its
+    attempted moves, the first chunk's diag)."""
     setup = runner.setup_run(cfg, setfl=setfl, engine="cellmc", device=dev)
     setup, *_, d0 = runner.run_sampling(setup, write_files=False,
-                                        write_traj=False)
+                                        write_traj=False,
+                                        checkpoint_path=checkpoint)
     m0 = int(setup.moves_tried)
     t = runner.timed(setup.device)
     out = runner.run_sampling(setup, write_files=False, write_traj=False)
@@ -2976,11 +2987,13 @@ def two_chunks(cfg, setfl, dev):
     return out[0], out[1:], secs, int(out[0].moves_tried) - m0, d0
 
 
-def sharded_style(style, rank, dev, table):
+def sharded_style(style, rank, dev, table, ckdir):
     """One rank's share of the sharded phase for the bench's LJ or EAM
     configuration: its first B2/B3 sweep and B1/B4 total at its own
     shard-folded seeds against their plain versions, then two chunks of
-    run_sampling through the sharded runner."""
+    run_sampling through the sharded runner, the first checkpointed into
+    ``ckdir``, then the second again on a fresh set-up restored from
+    that checkpoint."""
     from neuralmelting_tpu_torch.parallel import mesh
     cfg = BENCH.configs()["lj" if style == "pair" else "eam"]
     setfl = table if style == "eam" else None
@@ -3011,8 +3024,9 @@ def sharded_style(style, rank, dev, table):
     del setup
     CK.reset_launches()
     CE.reset_launches()
+    ck = os.path.join(ckdir, f"{style}.ckpt.npz")
     setup, (recs, _, hist, xacc, diag), secs, moves, d0 = two_chunks(
-        cfg, setfl, dev)
+        cfg, setfl, dev, checkpoint=ck)
     launches = {**CK.LAUNCHES, **CE.LAUNCHES}
     check(d0 == 0 and diag == 0, f"[{tag}] diag {d0}, {diag} (16 = "
           "SHIFT_DESYNC)")
@@ -3036,11 +3050,38 @@ def sharded_style(style, rank, dev, table):
                                                       "eam_total")
     check(all(launches[k] > 0 for k in keep),
           f"[{tag}] a kernel never launched: {launches}")
+    # the restart: a fresh set-up restored from the first chunk's
+    # checkpoint runs the timed chunk again, bit for bit
+    fresh = runner.setup_run(cfg, setfl=setfl, engine="cellmc", device=dev)
+    CK.reset_launches()
+    CE.reset_launches()
+    t = runner.timed(fresh.device)
+    fresh = runner.restore_setup(fresh, ck)
+    restore_s = runner.timed(fresh.device) - t
+    fresh, rrecs, _, rhist, rxacc, rdiag = runner.run_sampling(
+        fresh, write_files=False, write_traj=False)
+    rlaunches = {**CK.LAUNCHES, **CE.LAUNCHES}
+    check(all(rlaunches[k] > 0 for k in keep),
+          f"[{tag}] a kernel never launched after the restart: {rlaunches}")
+    check(rdiag == diag, f"[{tag}] resumed diag {rdiag}, timed {diag}")
+    for f in dataclasses.fields(recs):
+        check(torch.equal(getattr(rrecs, f.name), getattr(recs, f.name)),
+              f"[{tag}] the resumed chunk's records differ in {f.name}")
+    check(torch.equal(rhist, hist) and torch.equal(rxacc, xacc),
+          f"[{tag}] the resumed chunk's hist or xacc differ")
+    rst, rslots = mesh.host_fetch((fresh.states, fresh.slot_of), r)
+    slots = mesh.host_fetch(setup.slot_of, r)
+    for f in ("pos", "box", "pe"):
+        check(torch.equal(getattr(rst, f), getattr(st, f)),
+              f"[{tag}] the resumed chunk's {f} differ")
+    check(torch.equal(rslots, slots),
+          f"[{tag}] the resumed chunk's slot_of differ")
     return dict(secs=secs, moves=moves, launches=launches, rl=rl, r=r,
-                pe_err=errs, xacc=xacc.tolist())
+                pe_err=errs, xacc=xacc.tolist(), restore_s=restore_s,
+                ck_mb=os.path.getsize(ck) / 1e6, rlaunches=rlaunches)
 
 
-def sharded_rank(rank, port, table, queue):
+def sharded_rank(rank, port, table, ckdir, queue):
     """A spawned rank: both styles over the process group; puts (rank,
     result or the traceback) on ``queue``."""
     import traceback
@@ -3050,7 +3091,7 @@ def sharded_rank(rank, port, table, queue):
         backend = mesh.init_multihost(f"127.0.0.1:{port}", SHARD_RANKS,
                                       rank, device=dev)
         try:
-            res = {s: sharded_style(s, rank, dev, table)
+            res = {s: sharded_style(s, rank, dev, table, ckdir)
                    for s in ("pair", "eam")}
         finally:
             mesh.shutdown()
@@ -3072,7 +3113,10 @@ def phase_sharded(name, table):
     s.close()
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank, args=(i, port, table, q))
+    # rank 0 writes the checkpoints here, both ranks restore from them
+    ckdir = tempfile.mkdtemp(prefix="nm_sharded_")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(i, port, table, ckdir, q))
              for i in range(SHARD_RANKS)]
     t = time.perf_counter()
     for p in procs:
@@ -3102,6 +3146,7 @@ def phase_sharded(name, table):
             if p.is_alive():
                 p.terminate()
                 p.join()
+        shutil.rmtree(ckdir, ignore_errors=True)
     ranks_s = time.perf_counter() - t
     for k in ("sweep", "total", "eam_sweep", "eam_total"):
         KERNELS[k]["launches_sharded"] = sum(
@@ -3130,6 +3175,16 @@ def phase_sharded(name, table):
             + ", ".join(f"{e:.3e}" for e in errs)
             + f"; {per}; one process {secs:.4f} s a chunk, "
             f"{moves / secs:.4e} moves/s on {name}")
+        log(f"[sharded] {style} restart: a {res[0][style]['ck_mb']:.1f} MB "
+            "checkpoint of the first chunk, restored on fresh set-ups in "
+            + ", ".join(f"{v[style]['restore_s']:.4f} s on rank {k}"
+                        for k, v in sorted(res.items()))
+            + " (barrier, load and install); the resumed chunk equals the "
+            "timed one bit for bit (records, hist, xacc, diag, pos, box, "
+            "pe, slot_of); launches "
+            + "; ".join(f"rank {k} {v[style]['rlaunches']}"
+                        for k, v in sorted(res.items()))
+            + f" on {name}")
     log(f"[sharded] the second chunk of each, on the host's clock after "
         f"a device sync; the ranks share one card, so this is no scaling "
         f"figure; ranks {ranks_s:.1f} s")
