@@ -358,6 +358,7 @@ from neuralmelting_tpu_torch.ops import jrandom as J
 from neuralmelting_tpu_torch.ops import lj_delta as LD
 from neuralmelting_tpu_torch.ops import neighbors as NB
 from neuralmelting_tpu_torch.parallel import ensemble as ENS
+from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.ops.energy import min_image, pair_energy_virial
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.refimpl import cpu_ref as CPU_REF
@@ -2981,6 +2982,9 @@ def two_chunks(cfg, setfl, dev, checkpoint=None):
                                         write_traj=False,
                                         checkpoint_path=checkpoint)
     m0 = int(setup.moves_tried)
+    # the ranks meet first: rank 0's checkpoint write stays out of the
+    # other ranks' timed chunk
+    mesh.barrier(setup.device)
     t = runner.timed(setup.device)
     out = runner.run_sampling(setup, write_files=False, write_traj=False)
     secs = runner.timed(setup.device) - t
@@ -2994,7 +2998,6 @@ def sharded_style(style, rank, dev, table, ckdir):
     run_sampling through the sharded runner, the first checkpointed into
     ``ckdir``, then the second again on a fresh set-up restored from
     that checkpoint."""
-    from neuralmelting_tpu_torch.parallel import mesh
     cfg = BENCH.configs()["lj" if style == "pair" else "eam"]
     setfl = table if style == "eam" else None
     tag = f"sharded {style} rank {rank}"
@@ -3085,7 +3088,6 @@ def sharded_rank(rank, port, table, ckdir, queue):
     """A spawned rank: both styles over the process group; puts (rank,
     result or the traceback) on ``queue``."""
     import traceback
-    from neuralmelting_tpu_torch.parallel import mesh
     try:
         dev = mesh.rank_device("cuda", SHARD_RANKS, rank)
         backend = mesh.init_multihost(f"127.0.0.1:{port}", SHARD_RANKS,
