@@ -2984,7 +2984,7 @@ def two_chunks(cfg, setfl, dev, checkpoint=None):
     m0 = int(setup.moves_tried)
     # the ranks meet first: rank 0's checkpoint write stays out of the
     # other ranks' timed chunk
-    mesh.barrier(setup.device)
+    mesh.barrier()
     t = runner.timed(setup.device)
     out = runner.run_sampling(setup, write_files=False, write_traj=False)
     secs = runner.timed(setup.device) - t

@@ -101,13 +101,13 @@ def shutdown():
         dist.destroy_process_group()
 
 
-def barrier(device) -> None:
+def barrier() -> None:
     """Wait for every rank (a no-op without a process group); under NCCL
-    on this rank's card."""
+    on this rank's card, which ``init_multihost`` made current."""
     if process_count() == 1:
         return
     if dist.get_backend() == "nccl":
-        dist.barrier(device_ids=[torch.device(device).index])
+        dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
 

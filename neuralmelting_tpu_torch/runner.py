@@ -353,7 +353,7 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     the energies (and the EAM density slab) on that shard, as the JAX
     runner restores whole and shards again. A checkpoint whose ensemble
     is not this run's raises the same ValueError on every rank."""
-    mesh.barrier(setup.device)
+    mesh.barrier()
     states, slot_of, cfg_json, extra = ckpt.load(checkpoint_path,
                                                  setup.device)
     if cfg_json not in ("{}", setup.cfg.to_json()):
