@@ -21,8 +21,8 @@ block. As in the JAX package's ``shard_map`` wrapper:
   * the exchange runs outside the shard: every rank gathers each
     replica's (pe, volume), its slot and its slot-attached fields, draws
     the same uniforms from ``fold_in(fold_in(xkey, event), sweep)``,
-    computes the same swaps (sampler/tempering.py) and applies them to
-    its own replicas.
+    computes the same swaps and applies them to its own replicas
+    (``tempering.exchange_gathered``, which the gather engine shares).
 
 One ``all_gather`` a record block carries all of it: R rows of 12 f64
 (f32 and int32 values, exact) and one row a rank of (diag, shift).
@@ -37,10 +37,6 @@ from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 from neuralmelting_tpu_torch.sampler import tempering
 from neuralmelting_tpu_torch.sampler.driver import stack_records
-from neuralmelting_tpu_torch.sampler.state import box_volume
-
-_COLS = ("pe", "vol", "slot") + tempering.SLOT_FIELDS
-_NCOL = len(_COLS)
 
 
 def _squeeze(rec):
@@ -48,58 +44,18 @@ def _squeeze(rec):
     return type(rec)(**{k: v[0] for k, v in vars(rec).items()})
 
 
-def _gather_block(states, slot_of, diag, shift):
-    """One all_gather: (whole (R, 12) per-replica columns, diag OR'd over
-    the ranks, shift max over the ranks, whether the shifts differed)."""
-    rl = slot_of.shape[0]
-    cols = [states.pe, box_volume(states.box), slot_of] + [
-        getattr(states, f) for f in tempering.SLOT_FIELDS]
-    own = torch.zeros((rl + 1, _NCOL), dtype=torch.float64,
-                      device=slot_of.device)
-    own[:rl] = torch.stack([c.to(torch.float64) for c in cols], dim=1)
-    own[rl, 0] = diag.to(torch.float64)
-    own[rl, 1:4] = shift.to(torch.float64)
-    every = mesh.all_gather(own[None], axis=0)        # (n, rl + 1, 12)
-    whole = every[:, :rl].reshape(-1, _NCOL)
-    tail = every[:, rl]
-    d = tail[:, 0].to(torch.int32)
+def _block_flags(rows):
+    """The ranks' (diag, shift) rows of ``tempering.exchange_gathered``:
+    (diag OR'd over the ranks, shift max over the ranks, whether the
+    shifts differed)."""
+    d = rows[:, 0].to(torch.int32)
     dor = d[0]
     for k in range(1, d.shape[0]):
         dor = dor | d[k]
-    sh = tail[:, 1:4].to(torch.float32)
+    sh = rows[:, 1:4].to(torch.float32)
     smax = torch.max(sh, dim=0).values
     desync = torch.any(smax != torch.min(sh, dim=0).values)
-    return whole, dor, smax, desync
-
-
-def _exchange(states, whole, u, event_idx, npress, ntemp, t_grid, p_grid,
-              kb, p2e):
-    """tempering.exchange_event on the gathered whole-R columns; each rank
-    keeps its own replicas' rows. Returns (states, slot_of, n_acc)."""
-    r = whole.shape[0]
-    dev = whole.device
-    rows = mesh.shard_rows(r)
-    slot_w = whole[:, 2].to(torch.int32)
-    perm = torch.argsort(slot_w)                      # slot -> replica
-    axis, phase = tempering.event_axis_phase(event_idx, npress)
-    sigma, n_acc = tempering.propose_swaps(
-        whole[perm, 0].to(torch.float32), whole[perm, 1].to(torch.float32),
-        t_grid, p_grid, npress, ntemp, axis, phase, u, kb, p2e)
-    new_perm = perm[sigma]                            # slot -> replica
-    slot_ids = torch.arange(r, dtype=torch.int32, device=dev)
-    new_slot = torch.zeros((r,), dtype=torch.int32,
-                           device=dev).scatter(0, new_perm, slot_ids)
-
-    def to_new_owner(values_slot):
-        return torch.zeros_like(values_slot).scatter(
-            0, new_perm, values_slot)[rows]
-
-    updates = dict(temp=to_new_owner(t_grid.to(torch.float32)),
-                   press=to_new_owner(p_grid.to(torch.float32)))
-    for k, f in enumerate(tempering.SLOT_FIELDS):
-        col = whole[perm, 3 + k].to(getattr(states, f).dtype)
-        updates[f] = to_new_owner(col)
-    return states.replace(**updates), new_slot[rows], n_acc
+    return dor, smax, desync
 
 
 def make_sharded_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
@@ -145,13 +101,14 @@ def make_sharded_cellmc_run_fn(kb, p2e, geom, mod: int, nrecords: int,
             (states, slabs, count, shift, rec, frame, d,
              t) = inner(states, slabs, count, shift, pot, cell_tabs, seed0)
             tried = tried + t
-            whole, d, shift, desync = _gather_block(states, slot_of, d,
-                                                    shift)
-            diag = diag | d | torch.where(desync, SC.DIAG_SHIFT_DESYNC, 0)
             hist.append(slot_of)
-            states, slot_of, n_acc = _exchange(
-                states, whole, xu[event_idx], event_idx, npress, ntemp,
-                t_grid, p_grid, kb, p2e)
+            states, slot_of, n_acc, rows = tempering.exchange_gathered(
+                states, slot_of, xu[event_idx], event_idx, npress, ntemp,
+                t_grid, p_grid, kb, p2e,
+                row=torch.cat([d.reshape(1).to(torch.float64),
+                               shift.to(torch.float64)]))
+            d, shift, desync = _block_flags(rows)
+            diag = diag | d | torch.where(desync, SC.DIAG_SHIFT_DESYNC, 0)
             recs.append(_squeeze(rec))
             if write_traj:
                 frames.append((frame[0][0], frame[1][0]))

@@ -15,6 +15,12 @@ feed JAX's own uniforms).
 ``exchange_event_keyed`` draws them from a ``jax.random`` key as the JAX
 ``propose_swaps`` does, ``uniform(key, grid shape, 1e-38, 1)``, so its
 swaps and acceptances equal the JAX package's (the gather engine).
+
+Under more than one process each rank holds a shard of the replicas:
+``exchange_gathered`` gathers every replica's (pe, volume, slot,
+``SLOT_FIELDS``) in one ``all_gather``, computes the same swaps on every
+rank and applies them to the rank's own replicas (both sharded engines:
+parallel/cellmc_sharded.py and the gather engine, parallel/ensemble.py).
 """
 
 from __future__ import annotations
@@ -22,10 +28,13 @@ from __future__ import annotations
 import torch
 
 from neuralmelting_tpu_torch.ops import jrandom
+from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.sampler.state import box_volume
 
 SLOT_FIELDS = ("dpos", "dvol", "dt", "nap", "ntp", "nav", "ntv", "nah",
                "nth")
+# the gathered columns: pe, volume, slot, then the slot-attached fields
+_COLS = 3 + len(SLOT_FIELDS)
 
 
 def _pair_partner(length: int, phase: int, device):
@@ -125,12 +134,65 @@ def event_axis_phase(event_idx: int, npress: int):
     return ((1, 0), (1, 1), (0, 0), (0, 1))[branch]
 
 
+def exchange_uniforms(key, event_idx: int, npress, ntemp):
+    """Event ``event_idx``'s uniforms from ``key`` (2,), as the JAX
+    ``propose_swaps`` draws them: ``uniform(key, grid shape, 1e-38, 1)``
+    with the grid laid out along the event's axis."""
+    axis, _ = event_axis_phase(event_idx, npress)
+    shape = (npress, ntemp) if axis == 1 else (ntemp, npress)
+    return jrandom.uniform(key, shape, 1e-38, 1.0)
+
+
 def exchange_event_keyed(states, slot_of, key, event_idx: int, npress,
                          ntemp, t_grid, p_grid, kb, p2e):
     """``exchange_event`` with its uniforms drawn from ``key`` (2,) on the
     states' device, as the JAX ``propose_swaps`` draws them."""
-    axis, _ = event_axis_phase(event_idx, npress)
-    shape = (npress, ntemp) if axis == 1 else (ntemp, npress)
-    u = jrandom.uniform(key, shape, 1e-38, 1.0)
+    u = exchange_uniforms(key, event_idx, npress, ntemp)
     return exchange_event(states, slot_of, u, event_idx, npress, ntemp,
                           t_grid, p_grid, kb, p2e)
+
+
+def exchange_gathered(states, slot_of, u, event_idx: int, npress, ntemp,
+                      t_grid, p_grid, kb, p2e, row=None):
+    """``exchange_event`` over a process group: ``states`` and ``slot_of``
+    are this rank's shard, ``t_grid``, ``p_grid`` and ``u`` whole and the
+    same on every rank. One ``all_gather`` carries every replica's pe,
+    volume, slot and ``SLOT_FIELDS`` as f64 (the f32 and int32 values
+    exactly) and, with ``row``, a (<= 12,) tensor of the rank's own (its
+    diag bits, say). Every rank computes the same swaps and keeps its own
+    replicas' rows. Returns (states, slot_of, n_acc, rows): ``rows``
+    (ranks, 12) each rank's ``row`` in rank order, None without one."""
+    rl = slot_of.shape[0]
+    cols = [states.pe, box_volume(states.box), slot_of] + [
+        getattr(states, f) for f in SLOT_FIELDS]
+    own = torch.zeros((rl + (row is not None), _COLS), dtype=torch.float64,
+                      device=slot_of.device)
+    own[:rl] = torch.stack([c.to(torch.float64) for c in cols], dim=1)
+    if row is not None:
+        own[rl, :row.shape[0]] = row.to(torch.float64)
+    every = mesh.all_gather(own[None], axis=0)     # (ranks, rl [+ 1], 12)
+    whole = every[:, :rl].reshape(-1, _COLS)
+    r = whole.shape[0]
+    dev = whole.device
+    rows = mesh.shard_rows(r)
+    perm = torch.argsort(whole[:, 2].to(torch.int32))  # slot -> replica
+    axis, phase = event_axis_phase(event_idx, npress)
+    sigma, n_acc = propose_swaps(
+        whole[perm, 0].to(torch.float32), whole[perm, 1].to(torch.float32),
+        t_grid, p_grid, npress, ntemp, axis, phase, u, kb, p2e)
+    new_perm = perm[sigma]                           # slot -> replica
+    slot_ids = torch.arange(r, dtype=torch.int32, device=dev)
+    new_slot = torch.zeros((r,), dtype=torch.int32,
+                           device=dev).scatter(0, new_perm, slot_ids)
+
+    def to_new_owner(values_slot):
+        return torch.zeros_like(values_slot).scatter(
+            0, new_perm, values_slot)[rows]
+
+    updates = dict(temp=to_new_owner(t_grid.to(torch.float32)),
+                   press=to_new_owner(p_grid.to(torch.float32)))
+    for k, f in enumerate(SLOT_FIELDS):
+        col = whole[perm, 3 + k].to(getattr(states, f).dtype)
+        updates[f] = to_new_owner(col)
+    return (states.replace(**updates), new_slot[rows], n_acc,
+            every[:, rl] if row is not None else None)
