@@ -8,11 +8,13 @@ checkpoint and ``metrics.jsonl``; the last line printed is a JSON summary.
     python -m neuralmelting_tpu_torch.cli.remcmc -e LJ -ss 4 -pn 4 -tn 16 -o out/
 
 With ``--coordinator HOST:PORT --nprocs N --procid I`` (one process per
-device, each started with its own ``--procid``) the cellmc engine samples
-each process's shard of the replicas (parallel/cellmc_sharded.py) and
-process 0 alone writes the files and prints the summary; ``--restart``
-resumes a checkpoint of one process or of several, and ``--profile``
-writes one trace a process.
+device, each started with its own ``--procid``) each process samples its
+shard of the replicas, on the default gather engine (rebuild decisions
+and the exchange agreed over the processes: the run makes one process's
+decisions) or on cellmc (parallel/cellmc_sharded.py), and process 0
+alone writes the files and prints the summary; ``--restart`` resumes a
+checkpoint of one process or of several, and ``--profile`` writes one
+trace a process.
 """
 
 from __future__ import annotations
@@ -72,9 +74,11 @@ def main(argv=None):
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                     help="multi-process runs: the address of process 0's "
                          "torch.distributed store; start one process per "
-                         "device with --nprocs/--procid. The cellmc "
-                         "engine samples each process's shard of the "
-                         "replicas, process 0 writes all outputs; the "
+                         "device with --nprocs/--procid. Each process "
+                         "samples its shard of the replicas on either "
+                         "engine (gather, the default, makes the "
+                         "decisions of one process), process 0 writes "
+                         "all outputs; the "
                          "device is cuda:<local rank> (LOCAL_RANK, else "
                          "procid, modulo the node's cards) unless "
                          "--device names one. NCCL where each process of "

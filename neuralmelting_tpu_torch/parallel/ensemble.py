@@ -18,6 +18,16 @@ device, here the host reads the decision: one sync before every pass
 and before the tail (``COUNTS``). After an HMC tail the list is checked
 again, and a violation sets ``DIAG_NL_STALE``.
 
+Under more than one process (parallel/mesh.py) each rank runs this on
+its shard of the replicas, each replica with its global key, and the
+decisions stay global, as the JAX program's are under GSPMD: every
+rebuild decision is ORed over the ranks (``mesh.any_ranks``; ``COUNTS``
+also counts the rebuilds a rank made for another's replicas), the
+tail's worst shrink is a min over them, and the exchange runs on
+gathered values (``tempering.exchange_gathered``), which also OR the
+diag bits. The collectives sit between the stages, never inside a
+captured graph. The ranks so make the decisions of one process.
+
 A sweep is four kinds of stage, each a function of tensors only: the
 head (the replica keys split, dpos_eff, every pass's draws, the first
 rebuild decision), the list build, a pass (which ends with the next two
@@ -37,10 +47,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neuralmelting_tpu_torch.ops import jrandom
 from neuralmelting_tpu_torch.ops import neighbors as NB
 from neuralmelting_tpu_torch.ops import potential_ops as PO
+from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.sampler import checkerboard as CB
 from neuralmelting_tpu_torch.sampler import tempering
 from neuralmelting_tpu_torch.sampler.adapt import adapt_step_sizes
@@ -49,9 +61,11 @@ from neuralmelting_tpu_torch.sampler.moves import cbrt
 from neuralmelting_tpu_torch.sampler.state import box_volume
 
 # host-side counts since the last reset_counts(): sweeps, passes, host
-# syncs (rebuild decisions), global rebuilds, CUDA graph replays
+# syncs (rebuild decisions; each one a collective under more than one
+# process), global rebuilds, CUDA graph replays, and the rebuilds this
+# rank made only because another rank's replicas raised the flag
 COUNTS = {"sweeps": 0, "passes": 0, "syncs": 0, "rebuilds": 0,
-          "replays": 0}
+          "replays": 0, "remote_rebuilds": 0}
 
 _SQ3 = 3.0 ** 0.5
 
@@ -158,6 +172,7 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
     one_pass = CB.make_cb_pass_fn(kb, cellcfg, style)
     tail = CB.make_cb_tail_fn(kb, p2e, nvol, nhmc, nstps, mass, style)
     graphed = {}
+    multi = mesh.process_count() > 1
 
     def stage(name, fn, args, keep=()):
         if not (graphs and args[0].is_cuda):
@@ -175,7 +190,7 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                 _lists(None, None, ref_pos, ref_box, rlist), pos, box, rc,
                 budget=budget, shrink=shrink))
 
-        def head(key, dpos, pos, box, ref_pos, ref_box, rlist):
+        def head(key, dpos, pos, box, dvol, ref_pos, ref_box, rlist):
             key, kpass, kvol, khmc = jrandom.split(key, 4).unbind(-2)
             # per-replica dpos clamp: checkerboard independence AND enough
             # skin headroom that one pass per fresh rebuild is always legal
@@ -193,7 +208,12 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                                   cellcfg.cells_per_color, dpos_eff)
             bits = torch.where(torch.any(margin_cb <= 0.0),
                                CB.DIAG_CB_INVALID, 0).to(torch.int32)
-            return (key, kvol, khmc, dpos_eff, budget, bits,
+            # the tail's worst isotropic shrink over nvol volume trials
+            # (box and dvol stay put through the passes)
+            vol = box_volume(box)
+            shrink = torch.min(cbrt(
+                torch.maximum(vol - nvol * dvol, 0.01 * vol) / vol))
+            return (key, kvol, khmc, dpos_eff, budget, shrink, bits,
                     stale(ref_pos, ref_box, rlist, pos, box, budget, 1.0),
                     *draws)
 
@@ -203,20 +223,16 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
             return nl.idx, nl.count, nl.ref_pos, nl.ref_box, nl.rlist, \
                 nl.overflow
 
-        def pass_(pos, box, temp, pe, virial, nap, ntp, dvol, dt, idx, count,
-                  ref_pos, ref_box, rlist, dpos_eff, budget, table, aux,
-                  *draws):
+        def pass_(pos, box, temp, pe, virial, nap, ntp, dt, idx, count,
+                  ref_pos, ref_box, rlist, dpos_eff, budget, shrink, table,
+                  aux, *draws):
             st = states.replace(pos=pos, box=box, temp=temp, pe=pe,
                                 virial=virial, nap=nap, ntp=ntp)
             st, aux = one_pass(pot, table, st,
                                _lists(idx, count, ref_pos, ref_box, rlist),
                                aux, dpos_eff, None, draws=draws)
-            # the next pass's rebuild decision, and the tail's: its worst
-            # isotropic shrink over nvol volume trials + a 4-sigma bound
-            # on HMC leapfrog drift
-            vol = box_volume(box)
-            shrink = torch.min(cbrt(
-                torch.maximum(vol - nvol * dvol, 0.01 * vol) / vol))
+            # the next pass's rebuild decision, and the tail's: the head's
+            # worst shrink + a 4-sigma bound on HMC leapfrog drift
             b_hmc = 0.0
             if nhmc:
                 b_hmc = nstps * dt * 4.0 * torch.sqrt(kb * temp / mass)
@@ -247,28 +263,39 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                     st.nth, sweep + 1, aux, bits)
 
         def rebuild_if(flag, nls):
+            # a global decision, as the JAX engine's jnp.any(stale) over
+            # the whole ensemble: ORed over the ranks between stages
             COUNTS["syncs"] += 1
-            if not bool(flag):
+            mine = bool(flag)
+            if multi:
+                if not bool(mesh.any_ranks(flag)):
+                    return nls
+                COUNTS["remote_rebuilds"] += int(not mine)
+            elif not mine:
                 return nls
             COUNTS["rebuilds"] += 1
             return _lists(*stage("build", build, (states.pos, states.box)))
 
-        (key, kvol, khmc, dpos_eff, budget, bits, flag,
+        (key, kvol, khmc, dpos_eff, budget, shrink, bits, flag,
          *draws) = stage("head", head, (states.key, states.dpos, states.pos,
-                                        states.box, nls.ref_pos, nls.ref_box,
-                                        nls.rlist), keep=(4, 5, 6))
+                                        states.box, states.dvol, nls.ref_pos,
+                                        nls.ref_box, nls.rlist),
+                         keep=(5, 6, 7))
         states = states.replace(key=key)
         diag = diag | bits
+        if multi and (nvol or nhmc):
+            # the worst shrink over the whole ensemble, as jnp.min is
+            mesh.all_reduce_(shrink, dist.ReduceOp.MIN)
         for p in range(npasses):
             nls = rebuild_if(flag, nls)
             pos, pe, vir, nap, ntp, aux, flags = stage(
                 "pass", pass_,
                 (states.pos, states.box, states.temp, states.pe,
-                 states.virial, states.nap, states.ntp, states.dvol,
-                 states.dt, nls.idx, nls.count, nls.ref_pos, nls.ref_box,
-                 nls.rlist, dpos_eff, budget, table, aux,
+                 states.virial, states.nap, states.ntp, states.dt,
+                 nls.idx, nls.count, nls.ref_pos, nls.ref_box, nls.rlist,
+                 dpos_eff, budget, shrink, table, aux,
                  *(d[:, p].contiguous() for d in draws)),
-                keep=(9, 10, 11, 12, 13, 16))
+                keep=(8, 9, 10, 11, 12, 16))
             states = states.replace(pos=pos, pe=pe, virial=vir, nap=nap,
                                     ntp=ntp)
             flag = flags[0]
@@ -347,9 +374,18 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
             # restarts never replay an exchange-uniform sequence
             ekey = jrandom.fold_in(jrandom.fold_in(xkey, event_idx),
                                    states.sweep[0])
-            states, slot_of, n_acc = tempering.exchange_event_keyed(
-                states, slot_of, ekey, event_idx, npress, ntemp, t_grid,
-                p_grid, kb, p2e)
+            if multi:
+                # every rank draws the whole event's uniforms and swaps
+                # on gathered values; diag rides along, ORed over ranks
+                states, slot_of, n_acc, rows = tempering.exchange_gathered(
+                    states, slot_of, tempering.exchange_uniforms(
+                        ekey, event_idx, npress, ntemp), event_idx, npress,
+                    ntemp, t_grid, p_grid, kb, p2e, row=diag.reshape(1))
+                diag = or_reduce(rows[:, 0].to(torch.int32))
+            else:
+                states, slot_of, n_acc = tempering.exchange_event_keyed(
+                    states, slot_of, ekey, event_idx, npress, ntemp,
+                    t_grid, p_grid, kb, p2e)
             recs.append(rec)
             frames.append(frame)
             xacc.append(n_acc)

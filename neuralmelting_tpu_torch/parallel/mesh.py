@@ -204,3 +204,12 @@ def all_reduce_(x: torch.Tensor, op) -> torch.Tensor:
     else:
         dist.all_reduce(x, op=op)
     return x
+
+
+def any_ranks(flag: torch.Tensor) -> torch.Tensor:
+    """A 0-dim flag ORed over the ranks: an int32 ``all_reduce`` with MAX
+    (gloo takes no bool), through the host under gloo; ``flag`` itself
+    in one process."""
+    if process_count() == 1:
+        return flag
+    return all_reduce_(flag.to(torch.int32, copy=True), dist.ReduceOp.MAX)

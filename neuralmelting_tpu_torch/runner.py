@@ -25,18 +25,22 @@ per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a checkpoint
 (``io/checkpoint.py``) that ``restore_setup`` resumes exactly.
 
 Multi-process runs (``parallel/mesh.init_multihost``, one process per
-device): the cellmc engine keeps each rank's shard of the replicas and
-runs ``parallel/cellmc_sharded.py``; the chunk's records, slot history
-and checkpoint are gathered on every rank and rank 0 alone writes them,
-in the single-process layout. That checkpoint resumes in one process or
-in several, and so does a single-process one: ``restore_setup`` loads
-it whole on every rank and keeps the rank's shard. ``exchange=False`` is
+device): every rank builds the whole ensemble and keeps its shard of the
+replicas. The gather engine builds its lists, cache and energies on the
+shard and runs the same run function (parallel/ensemble.py), whose
+rebuild decisions are ORed over the ranks and whose exchange runs on
+gathered values, so it makes the decisions of one process, as the JAX
+runner's GSPMD program does; the cellmc engine runs
+``parallel/cellmc_sharded.py``. The chunk's records, slot history and
+checkpoint are gathered on every rank and rank 0 alone writes them, in
+the single-process layout. That checkpoint resumes in one process or in
+several, and so does a single-process one: ``restore_setup`` loads it
+whole on every rank and keeps the rank's shard. ``exchange=False`` is
 refused there with a ValueError, as in the JAX runner.
 
-Not here yet, each named with the ROADMAP item that brings it: the
-dense engine (A14, not ported); the gather engine under more than one
-process (A12 item 3b). Unlike the JAX runner there is no compile cache
-(nothing is traced) and no scoped-VMEM guard (a TPU compiler limit).
+Not here: the dense engine (ROADMAP A14, not ported). Unlike the JAX
+runner there is no compile cache (nothing is traced) and no scoped-VMEM
+guard (a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -76,7 +80,9 @@ _LATER = {
               "chain runs through sampler/serial.py, see golden.py",
     "dense": "ROADMAP A14 (the dense/MXU engine is not ported)",
 }
-_A12_GATHER = "ROADMAP A12 item 3b: the gather engine over a process group"
+# the checkpoint extras that hold a row a replica: gathered whole before
+# rank 0 writes them
+_ROW_EXTRAS = ("slab_xyz", "slab_ids", "nl_ref_pos", "nl_ref_box")
 
 
 def _multi() -> bool:
@@ -169,9 +175,6 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     if engine not in ("gather", "cellmc"):
         raise NotImplementedError(
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
-    if engine == "gather" and _multi():
-        raise NotImplementedError(
-            f"the gather engine under more than one process: {_A12_GATHER}")
     el = ELEMENTS[cfg.element]
     if cfg.phmc > 0 and engine == "cellmc":
         raise ValueError(
@@ -194,6 +197,12 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
         states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
                                dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev,
                                seed=cfg.seed)
+        if _multi():
+            # every rank built the same whole-R ensemble, each replica
+            # with its global key: keep this rank's shard, and build the
+            # lists, cache and energies on it (per replica, so the same
+            # bits as building whole and slicing)
+            states, slot_of = mesh.to_global((states, slot_of), r)
         if style == "eam":
             pot = eam_mod.to_device(pot, dev)
         cellcfg = cells_ops.make_cell_config(
@@ -346,11 +355,12 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     any device. Warns when the stored config differs from the current
     one.
 
-    Under more than one process (cellmc; the gather engine does not get
-    here): a barrier first, so that no rank reads a checkpoint rank 0 is
-    still writing; then every rank loads the same whole-R checkpoint,
-    keeps its shard of the states, ``slot_of`` and slabs, and rebuilds
-    the energies (and the EAM density slab) on that shard, as the JAX
+    Under more than one process: a barrier first, so that no rank reads
+    a checkpoint rank 0 is still writing; then every rank loads the same
+    whole-R checkpoint, keeps its shard of the states, ``slot_of`` and
+    the slabs (cellmc) or the lists' reference positions and boxes
+    (gather), and rebuilds the lists, cache and energies (gather) or the
+    energies and the EAM density slab (cellmc) on that shard, as the JAX
     runner restores whole and shards again. A checkpoint whose ensemble
     is not this run's raises the same ValueError on every rank."""
     mesh.barrier()
@@ -395,16 +405,21 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
 
 def _restore_gather(setup: RunSetup, states, slot_of, extra) -> RunSetup:
     dev = setup.device
+    ref_pos = ref_box = None
     if "nl_ref_pos" in extra:
         if int(extra["nl_capacity"]) != setup.cap:
             raise ValueError(
                 f"checkpoint lists hold {int(extra['nl_capacity'])} "
                 f"neighbours a row, this run's {setup.cap}")
-        ref = states.replace(
-            pos=torch.as_tensor(extra["nl_ref_pos"], device=dev),
-            box=torch.as_tensor(extra["nl_ref_box"], device=dev))
-    else:
-        ref = states
+        ref_pos = torch.as_tensor(extra["nl_ref_pos"], device=dev)
+        ref_box = torch.as_tensor(extra["nl_ref_box"], device=dev)
+    if _multi():
+        # every rank loaded the same whole-R checkpoint: keep this
+        # rank's shard of it
+        states, slot_of, ref_pos, ref_box = mesh.to_global(
+            (states, slot_of, ref_pos, ref_box), setup.t_grid.shape[0])
+    ref = states if ref_pos is None else states.replace(pos=ref_pos,
+                                                        box=ref_box)
     nls, _ = ENS.build_ensemble_nl(setup.pot, ref, skin=setup.cfg.skin,
                                    capacity=setup.cap)
     setup = dataclasses.replace(setup, slot_of=slot_of)
@@ -517,8 +532,9 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     if checkpoint_path:
         extras = checkpoint_extras(setup)
         if multi:
-            for k in ("slab_xyz", "slab_ids"):
-                extras[k] = mesh.all_gather(extras[k])
+            for k in _ROW_EXTRAS:
+                if k in extras:
+                    extras[k] = mesh.all_gather(extras[k])
         if is_writer:
             ckpt.save(checkpoint_path, ck_states, ck_slots, cfg.to_json(),
                       extras)

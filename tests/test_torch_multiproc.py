@@ -14,8 +14,8 @@ each.
   parts from the 1-process one: the shard is folded into the seeds); a
   checkpoint without slabs re-bins with a warning; one of another R is
   refused on every rank.
-- Under two processes the gather engine raises NotImplementedError
-  naming ROADMAP A12 item 3b, ``exchange=False`` raises the JAX runner's
+- Under two processes the gather engine sets up with each rank's half
+  of the replicas, ``exchange=False`` raises the JAX runner's
   ValueError (ROADMAP C14), and a chunk whose ranks raise different diag
   bits (CB_INVALID on one, SLAB_OVERFLOW on the other) returns their
   bitwise OR on both (tests/torch_shard_worker.py, mode "c13"; ROADMAP
@@ -157,10 +157,11 @@ def test_checkpoint_is_whole_and_resumes_in_one_process(two_ranks):
 
 def test_refusals_and_diag_or_under_two_processes(two_ranks):
     c13 = two_ranks["c13"]
-    # restore_setup is no refusal any more (the restart tests below);
-    # exchange=False is refused as the JAX runner refuses it
+    # the gather engine sets up on two ranks, each with its R / 2 rows
+    # (tests/test_torch_sharded_gather.py runs it); exchange=False is
+    # refused as the JAX runner refuses it
     assert sorted(c13["refused"].tolist()) == [
-        "gather:NotImplementedError", "no_exchange:ValueError"]
+        "gather:1 of 2 rows", "no_exchange:ValueError"]
     assert int(c13["diag"]) == SC.DIAG_CB_INVALID | SC.DIAG_SLAB_OVERFLOW
 
 

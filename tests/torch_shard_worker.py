@@ -8,10 +8,10 @@ mode "chunk": join the gloo group on 127.0.0.1:<port>, take this rank's
 shard of the whole-R inputs in <in.npz> (written by
 tests/torch_chunk_case.py ``save_inputs``), run one chunk of
 parallel/cellmc_sharded.py and let rank 0 write the gathered outputs.
-mode "c13": the refusals under two processes (the gather engine, still
-to come, and ``exchange=False``, which the JAX runner refuses too) and a
-chunk in which the two ranks raise different diag bits; rank 0 writes
-what it saw.
+mode "c13": the gather set-up under two processes (each rank holds R / 2
+rows), the refusal of ``exchange=False`` (the JAX runner refuses it too)
+and a chunk in which the two ranks raise different diag bits; rank 0
+writes what it saw.
 mode "restart": ``runner.restore_setup`` under two processes, <in.npz>
 standing for the directory that holds the rc 3.8 Al table and the
 single-process checkpoints of ``RESTART_CFGS["lj"]`` (``one.npz``, and
@@ -20,6 +20,14 @@ the first checkpointed, then the second again from that checkpoint on
 fresh set-ups; the 1-process checkpoint restored and one chunk run on
 it; the one without slabs likewise; a run of another R refused. Rank 0
 writes every gathered outcome (``restart_outcome``).
+mode "gather": the gather engine, <in.npz> standing for the directory
+that holds the rc 3.8 Al table and the single-process checkpoints of
+``GATHER_CFGS["lj"]`` (``one.npz``, and ``noref.npz`` without the lists'
+extras). For LJ (with HMC) and EAM, two chunks, LJ's first checkpointed
+into ``two.npz``; then LJ's second chunk again from ``two.npz``, from
+``one.npz`` and from ``noref.npz`` on fresh set-ups; then one chunk in
+which rank 0 alone raises CB_INVALID. Rank 0 writes every gathered
+outcome (``gather_outcome``), each rank's ``COUNTS`` included.
 """
 
 import dataclasses
@@ -40,8 +48,10 @@ from neuralmelting_tpu_torch.models.lj import LJCut  # noqa: E402
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG  # noqa: E402
 from neuralmelting_tpu_torch.ops import jrandom  # noqa: E402
 from neuralmelting_tpu_torch.parallel import cellmc_sharded as CSH  # noqa: E402,E501
+from neuralmelting_tpu_torch.parallel import ensemble as ENS  # noqa: E402
 from neuralmelting_tpu_torch.parallel import mesh  # noqa: E402
 from neuralmelting_tpu_torch.sampler import cellmc as SC  # noqa: E402
+from neuralmelting_tpu_torch.sampler import checkerboard as CB  # noqa: E402,E501
 from neuralmelting_tpu_torch.sampler.state import (FIELDS,  # noqa: E402
                                                    state_from_numpy)
 
@@ -54,6 +64,19 @@ RESTART_CFGS = {
                      nsmpl=2, mod=2, seed=4, dpos0=0.15, dvol0=0.002,
                      vol_every=1, rebin_every=1),
 }
+# the gather engine's cases: LJ with HMC on a 1 x 4 grid (rank 0 holds
+# the two cold replicas, rank 1 the two hot ones, whose HMC budget asks
+# for rebuilds that rank 0's would not) and EAM on a 2 x 2 grid
+GATHER_CFGS = {
+    "lj": RunConfig(name="gs", element="LJ", ncells=(4, 4, 4), npress=1,
+                    press=(1.0,), ntemp=4, temp=(0.3, 0.35, 1.5, 1.6),
+                    nsmpl=2, mod=2, seed=6, dpos0=0.05, phmc=0.05,
+                    nstps=4),
+    "eam": RunConfig(name="gs", element="AL", ncells=(4, 4, 4), npress=2,
+                     press=(1.0, 5000.0), ntemp=2, temp=(600.0, 650.0),
+                     nsmpl=2, mod=1, seed=4, dpos0=0.15, dvol0=0.002),
+}
+COUNTED = ("rebuilds", "syncs", "remote_rebuilds")
 TABLE = "al38.eam.alloy"
 CHEB = ("rc", "u_lo", "u_hi", "rho_hi", "q_lo", "c_phi", "c_phid", "c_rho",
         "c_rhod", "c_f", "c_fd")
@@ -119,20 +142,17 @@ def c13(inp, out):
     cfg = RunConfig(name="c13", element="LJ", ncells=(4, 4, 4), npress=1,
                     ntemp=2, press=(1.0,), temp=(0.7, 1.3), nsmpl=1, mod=1,
                     seed=3)
-    # what each refusal must say: the item still to come, or the JAX
-    # runner's refusal
-    for what, call, kind, says in (
-            ("gather", lambda: runner.setup_run(cfg, device="cpu"),
-             NotImplementedError, "A12 item 3b"),
-            ("no_exchange", lambda: runner.run_sampling(
-                runner.setup_run(cfg, engine="cellmc", device="cpu"),
-                exchange=False), ValueError,
-             "single-process cellmc engine only")):
-        try:
-            call()
-        except kind as e:
-            if says in str(e):
-                seen.append(f"{what}:{kind.__name__}")
+    # the gather set-up holds this rank's rows
+    g = runner.setup_run(cfg, device="cpu")
+    seen.append(f"gather:{g.states.pos.shape[0]} of {g.t_grid.shape[0]} "
+                "rows")
+    # the refusal must say the JAX runner's words
+    try:
+        runner.run_sampling(runner.setup_run(cfg, engine="cellmc",
+                                             device="cpu"), exchange=False)
+    except ValueError as e:
+        if "single-process cellmc engine only" in str(e):
+            seen.append("no_exchange:ValueError")
     # the two ranks raise different bits: CB_INVALID on rank 0,
     # SLAB_OVERFLOW on rank 1
     bit = (SC.DIAG_CB_INVALID, SC.DIAG_SLAB_OVERFLOW)[rank]
@@ -213,13 +233,74 @@ def restart(d, out):
                  wrong_r_refused=flags[:, 1].numpy(), **res)
 
 
+def gather_outcome(setup, outs, tag):
+    """``restart_outcome`` for the gather engine: the gathered states
+    (keys included), ``slot_of`` and the lists' reference positions and
+    boxes, with the chunk's records, frames, hist and xacc, and every
+    rank's diag (ranks,) and ``ENS.COUNTS`` of ``COUNTED`` (ranks, 3) (a
+    collective on every rank; in one process, that process's alone)."""
+    r = setup.t_grid.shape[0]
+    states, slot_of, ref_pos, ref_box = mesh.host_fetch(
+        (setup.states, setup.slot_of, setup.nls.ref_pos, setup.nls.ref_box),
+        r)
+    got = {"s_" + f: getattr(states, f) for f in FIELDS}
+    got.update(key=states.key, slot_of=slot_of, ref_pos=ref_pos,
+               ref_box=ref_box, counts=mesh.all_gather(torch.tensor(
+                   [[ENS.COUNTS[k] for k in COUNTED]])))
+    if outs is not None:
+        recs, frames, hist, xacc, diag = outs
+        got.update({"r_" + k: v for k, v in vars(recs).items()})
+        got.update(frame_pos=frames[0], frame_box=frames[1], hist=hist,
+                   xacc=xacc, diag=mesh.all_gather(torch.tensor([diag])))
+    return {f"{tag}_{k}": v.numpy() for k, v in got.items()}
+
+
+def gather_setup(d, style):
+    return runner.setup_run(GATHER_CFGS[style],
+                            setfl=os.path.join(d, TABLE), device="cpu")
+
+
+def gather_chunk(setup, tag, **kw):
+    """One chunk of ``setup`` with the counts reset before it: (setup,
+    its ``gather_outcome``)."""
+    ENS.reset_counts()
+    setup, *outs = runner.run_sampling(setup, write_files=False, **kw)
+    return setup, gather_outcome(setup, outs, tag)
+
+
+def gather(d, out):
+    res = {}
+    for style in ("lj", "eam"):
+        s = gather_setup(d, style)
+        ck = os.path.join(d, "two.npz") if style == "lj" else None
+        s, got = gather_chunk(s, f"{style}_c0", checkpoint_path=ck)
+        res.update(got)
+        res.update(gather_chunk(s, f"{style}_c1")[1])
+    # LJ's second chunk from the 2-rank, the 1-process and the JAX-layout
+    # checkpoints of the first, on fresh set-ups
+    for tag in ("two", "one", "noref"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")      # the same config, no warning
+            s = runner.restore_setup(gather_setup(d, "lj"),
+                                     os.path.join(d, f"{tag}.npz"))
+        res.update(gather_chunk(s, f"re_{tag}")[1])
+    # rank 0 alone raises CB_INVALID (its margin patched to 0)
+    if mesh.process_index() == 0:
+        CB.cb_dpos_margin = lambda pops, pot, cellcfg, box: torch.zeros(
+            box.shape[:-1])
+    res.update(gather_chunk(gather_setup(d, "lj"), "cb", nrecords=1)[1])
+    if mesh.process_index() == 0:
+        np.savez(out, **res)
+
+
 def main():
     port, rank, nprocs, mode, inp, out = sys.argv[1:7]
     torch.set_num_threads(1)
     mesh.init_multihost(f"127.0.0.1:{port}", int(nprocs), int(rank),
                         device="cpu")
     try:
-        {"chunk": chunk, "c13": c13, "restart": restart}[mode](inp, out)
+        {"chunk": chunk, "c13": c13, "restart": restart,
+         "gather": gather}[mode](inp, out)
     finally:
         mesh.shutdown()
     assert "jax" not in sys.modules and "neuralmelting_tpu" not in \
