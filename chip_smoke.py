@@ -49,7 +49,10 @@ Phases, in order (any failed check exits non-zero):
                    chains through melting_pipeline's default engine:
                    every chain diag 0 with a finite T_m, the mean
                    T_m(P*=1) within 2% of 0.78, port - JAX printed;
-                   seconds a chain and ms a sweep;
+                   seconds a chain and ms a sweep; the chains run one
+                   after another in this process (physics_chains with no
+                   workers: spawned processes sharing the card ran them
+                   slower);
   5c. gather-hmc — one chunk at 256 atoms with an HMC move a sweep (8
                    leapfrog steps): HMC moves accepted, diag 0 (no
                    NL_STALE), pe against a fresh list total and that total
@@ -170,11 +173,18 @@ Phases, in order (any failed check exits non-zero):
                    seeds (eam_config3_gather.json): per slot pe/N, V and
                    the virial pressure, and T_m of one classifier
                    trained on either side's features, each within 4
-                   standard errors; diag 0 and T_m inside the grid.
-  9a. eam-gather-physics — the same chains, gates and reference through
-                   melting_pipeline's default engine, gather (like for
-                   like: the reference is the JAX gather engine's); each
-                   chain's seconds, ms a sweep, rebuilds and host syncs.
+                   standard errors; diag 0 and T_m inside the grid; then
+                   eam-gather-physics: the same chains, gates and
+                   reference through melting_pipeline's default engine,
+                   gather (like for like: the reference is the JAX
+                   gather engine's), each chain's seconds, ms a sweep,
+                   rebuilds and host syncs. The 16 chains run in
+                   PHYS_WORKERS["eam-physics"] spawned processes sharing
+                   the card (physics_chains: the process count, the
+                   host's CPU cores and each chain's seconds printed)
+                   while this process trains the classifiers on the JAX
+                   chains' features, once for both engines' gates; the
+                   gates are computed here.
   Serial path (kernel B5 lj_delta: the run kernel, position_run, and the
   batched one, delta_moves) and the probe (kernel P1):
   10. serial-small — batched B5 against its plain version, dE and dW, at
@@ -241,6 +251,22 @@ Phases, in order (any failed check exits non-zero):
                    phase with its traceback, and neither may import jax
                    or the JAX package; seconds a chunk and moves/s a rank
                    beside the same chunk on this one process;
+                   then, on the same ranks, the gather engine over the
+                   process group at full width: gather-full's LJ
+                   configuration (4096 atoms, R=64, chunks of 1 record x
+                   2 sweeps) and eam-gather-full's EAM one (chunks of 1 x
+                   1): two chunks, the first checkpointed, the second
+                   timed and again from the checkpoint on fresh set-ups,
+                   bit for bit; diag 0, hist permutations, record pe of
+                   replicas 0 and 63 against a brute-force total (EAM:
+                   of the setfl splines the gather engine samples); this
+                   process runs the same chunks whole and holds the
+                   ranks' timed chunk to its own (hold_chunk: hist, xacc
+                   and decisions equal, energies and frames within the
+                   gather limits); seconds and ms a sweep a rank beside
+                   one process's, rebuilds, host syncs (each a
+                   collective) and remote rebuilds a sweep, checkpoint MB
+                   and restore seconds;
   15. probe       — every P1 variant against its plain version at REPS
                    passes, then the per-variant timing at the passes that
                    make a launch last >= 1 ms (python -m
@@ -313,6 +339,7 @@ import io
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -892,10 +919,13 @@ def phase_physics(name):
     with open(LJ_REFERENCE) as f:
         ref = json.load(f)
     t = time.perf_counter()
+    chains, _ = physics_chains("physics", [
+        (seed, validation_cfg(seed), dict(nbins=48, model="mlp", epochs=400,
+                                          band=2, engine="cellmc"))
+        for seed in ref["chain_seeds"]])
     tms = []
     for seed in ref["chain_seeds"]:
-        res = melting_pipeline(validation_cfg(seed), nbins=48, model="mlp",
-                               epochs=400, band=2, engine="cellmc")
+        res = chains[seed][0]
         check(res.diag == 0 and np.isfinite(res.tm).all(),
               f"[physics] seed {seed}: diag {res.diag}, T_m {res.tm}")
         tms.append(res.tm)
@@ -1093,21 +1123,144 @@ def phase_gather_small(name):
         f"{counts} on {name}")
 
 
+# the validation chains of a phase run in this many spawned processes
+# that share the card, each taking chains until none is left, or, with
+# 0, one after another in this process. Processes on one card take turns
+# on it: the LJ chains ran slower in 2, 4 or 8 processes than in this
+# one; the EAM chains gain from the processes' overlapped host time and
+# set-up (PERF.md, PR 17)
+PHYS_WORKERS = {"physics": 0, "gather-physics": 0, "eam-physics": 8}
+PHYS_TIMEOUT = 900          # seconds for a phase's chains
+
+
+def host_record(rec):
+    """A ThermoRecord's tensors on the host."""
+    return dataclasses.replace(rec, **{f.name: getattr(rec, f.name).cpu()
+                                       for f in dataclasses.fields(rec)})
+
+
+def run_chain(cfg, kw):
+    """One validation chain: (melting_pipeline's result, ENS.COUNTS, its
+    seconds)."""
+    ENS.reset_counts()
+    t = time.perf_counter()
+    res = melting_pipeline(cfg, **kw)
+    return res, dict(ENS.COUNTS), time.perf_counter() - t
+
+
+def chain_worker(jobs, results):
+    """A spawned process of ``physics_chains``: runs ``run_chain`` on every
+    (key, cfg, keyword arguments) it takes from ``jobs`` until None, and
+    puts (key, the outcome pickled, its tensors on the host) on
+    ``results`` for each, or (key, the traceback); last ("foreign", the
+    jax or JAX-package modules it imported)."""
+    import traceback
+    key = None
+    try:
+        for key, cfg, kw in iter(jobs.get, None):
+            res, counts, secs = run_chain(cfg, kw)
+            res = dataclasses.replace(res, classifier=None,
+                                      records=host_record(res.records))
+            # pickled by value: the queue's own pickler would share the
+            # tensors' storage with this process, which exits first
+            results.put((key, pickle.dumps((res, counts, secs))))
+        results.put(("foreign", sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "neuralmelting_tpu"))))
+    except Exception:
+        results.put((key, traceback.format_exc()))
+
+
+def physics_chains(tag, jobs, meanwhile=None, on_result=None):
+    """A validation phase's chains, (key, cfg, melting_pipeline keyword
+    arguments) each, on the card from PHYS_WORKERS[tag] spawned
+    processes, each taking chains until none is left; ``meanwhile()``
+    runs in this process while they do, then ``on_result(key, outcome)``
+    on each chain's outcome as it comes (with no workers: the chains one
+    after another in this process, after ``meanwhile``). Returns ({key:
+    (result, ENS.COUNTS, seconds)}, what ``meanwhile`` returned). A chain
+    that fails, a process that dies and a phase that passes PHYS_TIMEOUT
+    fail the phase; a process that imported jax or the JAX package too."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    t = time.perf_counter()
+    workers = PHYS_WORKERS[tag]
+    on_result = on_result or (lambda key, outcome: None)
+    if not workers:
+        extra = meanwhile() if meanwhile else None
+        out = {}
+        for key, cfg, kw in jobs:
+            out[key] = run_chain(cfg, kw)
+            on_result(key, out[key])
+        log(f"[{tag}] {len(jobs)} chains one after another in this "
+            "process: " + ", ".join(f"chain {k} {v[2]:.1f} s"
+                                    for k, v in out.items())
+            + f"; {time.perf_counter() - t:.1f} s in all")
+        return out, extra
+    ctx = mp.get_context("spawn")
+    todo, results = ctx.Queue(), ctx.Queue()
+    nproc = min(workers, len(jobs))
+    for job in list(jobs) + [None] * nproc:
+        todo.put(job)
+    procs = [ctx.Process(target=chain_worker, args=(todo, results))
+             for _ in range(nproc)]
+    for p in procs:
+        p.start()
+    out, done = {}, 0
+    try:
+        extra = meanwhile() if meanwhile else None
+        while len(out) < len(jobs) or done < nproc:
+            try:
+                key, val = results.get(timeout=5.0)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"[{tag}] a chain process exited with "
+                      f"{dead}")
+                check(time.perf_counter() - t < PHYS_TIMEOUT,
+                      f"[{tag}] the chains passed {PHYS_TIMEOUT} s")
+                continue
+            if key == "foreign":
+                check(not val, f"[{tag}] a chain process imported {val}")
+                done += 1
+                continue
+            check(isinstance(val, bytes), f"[{tag}] chain {key} failed:\n"
+                  f"{val}")
+            out[key] = pickle.loads(val)
+            on_result(key, out[key])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    log(f"[{tag}] {len(jobs)} chains in {nproc} spawned processes sharing "
+        f"the card, on a host of {os.cpu_count()} CPU cores: "
+        + ", ".join(f"chain {k} {v[2]:.1f} s" for k, v in out.items())
+        + f" (a process's first chain also compiles); "
+        f"{time.perf_counter() - t:.1f} s from the first start to the last "
+        "result")
+    return out, extra
+
+
 def phase_gather_physics(name):
     """The physics phase's configuration and gate on the gather engine
     (melting_pipeline's default), printed beside the JAX gather chains of
-    the same seeds."""
+    the same seeds; the chains run in spawned processes
+    (``physics_chains``)."""
     with open(LJ_REFERENCE) as f:
         ref = json.load(f)
+    t = time.perf_counter()
+    chains, _ = physics_chains("gather-physics", [
+        (seed, validation_cfg(seed), dict(nbins=48, model="mlp", epochs=400,
+                                          band=2))
+        for seed in ref["chain_seeds"]])
     tms, secs, ms_sweep = [], [], []
     for seed in ref["chain_seeds"]:
         cfg = validation_cfg(seed)
-        ENS.reset_counts()
-        t = time.perf_counter()
-        res = melting_pipeline(cfg, nbins=48, model="mlp", epochs=400,
-                               band=2)
-        secs.append(time.perf_counter() - t)
-        sweeps = ENS.COUNTS["sweeps"]
+        res, counts, sec = chains[seed]
+        secs.append(sec)
+        sweeps = counts["sweeps"]
         check(sweeps == cfg.nsmpl * cfg.mod, f"[gather-physics] seed {seed}:"
               f" {sweeps} gather sweeps, not {cfg.nsmpl * cfg.mod}")
         ms_sweep.append(1e3 * res.seconds["sampling"] / sweeps)
@@ -1116,8 +1269,8 @@ def phase_gather_physics(name):
         tms.append(res.tm)
         log(f"[gather-physics] seed {seed}: T_m(P*)={np.round(res.tm, 4)}; "
             f"{secs[-1]:.1f} s (sampling {res.seconds['sampling']:.1f} s, "
-            f"{ms_sweep[-1]:.2f} ms a sweep, {ENS.COUNTS['rebuilds']} "
-            f"rebuilds, {ENS.COUNTS['syncs']} syncs)")
+            f"{ms_sweep[-1]:.2f} ms a sweep, {counts['rebuilds']} "
+            f"rebuilds, {counts['syncs']} syncs)")
     port = np.asarray(tms)[:, 0]
     jax_tm = np.asarray([c["tm"][0] for c in ref["chains"]])
     mean = float(port.mean())
@@ -1131,7 +1284,7 @@ def phase_gather_physics(name):
         f" = {err:.4f} (gate 0.02: {'PASS' if err <= 0.02 else 'MISS'}); "
         f"port - JAX {mean - jax_tm.mean():+.4f}; {np.mean(secs):.1f} s a "
         f"chain, {np.mean(ms_sweep):.2f} ms a sweep (sampling incl. set-up),"
-        f" {sum(secs):.1f} s in all on {name}")
+        f" {time.perf_counter() - t:.1f} s in all on {name}")
     check(err <= 0.02,
           f"[gather-physics] mean T_m(P*=1)={mean} misses the 2% gate")
 
@@ -1164,12 +1317,18 @@ def phase_gather_hmc(name):
     check(e1 <= G_RTOL and e2 <= G_RTOL, "[gather-hmc] pe off its total")
 
 
+def gather_full_cfg():
+    """gather-full's configuration: 4096 LJ atoms on the JAX CLI's default
+    4x16 grid (R=64), seed 1234, chunks of 2 records x 4 sweeps."""
+    return RunConfig(name="gfull", element="LJ", ncells=(16, 8, 8), npress=4,
+                     ntemp=16, nsmpl=2, mod=4, ncut=0, seed=1234)
+
+
 def phase_gather_full(name):
     """4096 atoms on the JAX CLI's default 4x16 grid (R=64), one chunk of
     2 records x 4 sweeps through setup_run(engine="gather"); then one
     sweep and its record under torch.profiler."""
-    cfg = RunConfig(name="gfull", element="LJ", ncells=(16, 8, 8), npress=4,
-                    ntemp=16, nsmpl=2, mod=4, ncut=0, seed=1234)
+    cfg = gather_full_cfg()
     torch.cuda.reset_peak_memory_stats()
     t = runner.timed(DEV)
     setup = runner.setup_run(cfg, device=DEV)
@@ -1869,15 +2028,22 @@ def phase_eam_longrc(name):
         check(diag == 0, f"[eam-longrc] gather chunk {k} diag {diag}")
 
 
+def eam_gather_full_cfg():
+    """eam-gather-full's configuration: eambench's physics (4096 Al atoms,
+    16x8x8 fcc, the rc 3.8 table, seed 11) on the JAX CLI's default 4x16
+    grid (R=64), chunks of 1 record x 2 sweeps."""
+    lin = lambda a, b, n: tuple(float(v) for v in np.linspace(a, b, n))
+    return dataclasses.replace(FULL["eam"], name="egfull", npress=4,
+                               ntemp=16, press=lin(1.0, 5000.0, 4),
+                               temp=lin(600.0, 1400.0, 16), nsmpl=1, mod=2)
+
+
 def phase_eam_gather_full(name, table):
     """eambench's physics on the gather engine: 4096 Al atoms (16x8x8 fcc,
     the rc 3.8 table) on the JAX CLI's default 4x16 grid (R=64), two
     chunks of 1 record x 2 sweeps through setup_run (the first captures
     the CUDA graphs), timed with CUDA events only."""
-    lin = lambda a, b, n: tuple(float(v) for v in np.linspace(a, b, n))
-    cfg = dataclasses.replace(FULL["eam"], name="egfull", npress=4,
-                              ntemp=16, press=lin(1.0, 5000.0, 4),
-                              temp=lin(600.0, 1400.0, 16), nsmpl=1, mod=2)
+    cfg = eam_gather_full_cfg()
     sweeps = cfg.nsmpl * cfg.mod
     torch.cuda.reset_peak_memory_stats()
     setup, ms_setup = timed_ms(lambda: runner.setup_run(cfg, setfl=table,
@@ -2348,12 +2514,46 @@ def classifier_tm(g_slot, temp, seeds):
     return float(np.mean(out))
 
 
-def phase_eam_physics(name, table, engine="cellmc"):
+def phase_eam_physics(name, table):
     """docs/VALIDATION.md config 3 against the JAX gather engine's chains
     of it (eam_config3_gather.json, from scripts/eam_config3_reference.py:
-    the same seeds, on the CPU), through melting_pipeline on ``engine``:
-    the cellmc engine (tag eam-physics) or the default, gather (tag
-    eam-gather-physics, like for like with the reference). Gates, with
+    the same seeds, on the CPU), through melting_pipeline on both
+    engines: cellmc (tag eam-physics) and the default, gather (tag
+    eam-gather-physics, like for like with the reference). The 16 chains
+    run in spawned processes (``physics_chains``) while this process
+    trains the classifiers: on the JAX chains' features first, once for
+    both engines' gates, then on each chain's as it comes
+    (``eam_gates``)."""
+    with open(REFERENCE) as f:
+        ref = json.load(f)
+    seeds = ref["chain_seeds"]
+    temp = np.asarray(ref["temp_K"], np.float32)
+    t = time.perf_counter()
+    tm_p = {}
+
+    def train(key, outcome):
+        tm_p[key] = classifier_tm(outcome[0].g_slot, temp, CLF_SEEDS)
+
+    chains, tm_j = physics_chains(
+        "eam-physics",
+        [(f"{engine} {s}", config3(s),
+          dict(setfl=table, engine=engine, nbins=ref["nbins"]))
+         for engine in ("cellmc", "gather") for s in seeds],
+        meanwhile=lambda: np.array([classifier_tm(c["g_slot"], temp,
+                                                  CLF_SEEDS)
+                                    for c in ref["chains"]]),
+        on_result=train)
+    for engine in ("cellmc", "gather"):
+        keys = [f"{engine} {s}" for s in seeds]
+        eam_gates(name, ref, engine, {s: chains[k] for s, k in
+                                      zip(seeds, keys)},
+                  np.array([tm_p[k] for k in keys]), tm_j, t)
+
+
+def eam_gates(name, ref, engine, chains, tm_p, tm_j, t):
+    """The gates of one engine's config-3 chains (``chains`` by seed:
+    melting_pipeline's result, ENS.COUNTS, seconds; ``tm_p`` and
+    ``tm_j`` the classifiers' T_m on them and on the JAX chains), with
     nothing melting in this protocol, so that T_m of one chain and one
     classifier is mostly the classifier's initial weights (PERF.md):
     - every chain diag 0 with T_m inside the grid;
@@ -2362,25 +2562,18 @@ def phase_eam_physics(name, table, engine="cellmc"):
       chains' (batch means of 5 x 5 records per chain on both sides);
     - T_m, one classifier: the port's classifier, trained from seeds 0-3
       on each chain's features, gives the same mean T_m on the port's
-      chains as on the JAX chains within Z_PHYS standard errors (from the
-      chain-to-chain spread, pooled over both sides).
+      chains as on the JAX chains (``tm_j``) within Z_PHYS standard
+      errors (from the chain-to-chain spread, pooled over both sides).
     On gather it also prints each chain's seconds, ms a sweep, rebuilds
     and host syncs."""
     tag = "eam-physics" if engine == "cellmc" else "eam-gather-physics"
-    with open(REFERENCE) as f:
-        ref = json.load(f)
     seeds = ref["chain_seeds"]
     temp = np.asarray(ref["temp_K"], np.float32)
-    t = time.perf_counter()
-    runs = []
+    runs = [chains[s][0] for s in seeds]
     for s in seeds:
-        ENS.reset_counts()
-        tc = time.perf_counter()
-        runs.append(melting_pipeline(config3(s), setfl=table, engine=engine,
-                                     nbins=ref["nbins"]))
+        res, c, secs = chains[s]
         if engine == "gather":
-            c, res = ENS.COUNTS, runs[-1]
-            log(f"[{tag}] chain {s}: {time.perf_counter() - tc:.1f} s "
+            log(f"[{tag}] chain {s}: {secs:.1f} s "
                 f"(sampling {res.seconds['sampling']:.1f} s, "
                 f"{1e3 * res.seconds['sampling'] / c['sweeps']:.2f} ms a "
                 f"sweep over {c['sweeps']} sweeps), {c['rebuilds']} "
@@ -2406,10 +2599,6 @@ def phase_eam_physics(name, table, engine="cellmc"):
         f"{len(temp)} slots, {len(seeds)} chains a side (limit {Z_PHYS})")
     check(worst < Z_PHYS, f"[{tag}] sampling differs from the JAX "
           f"gather chains: max |z| {worst:.2f}")
-    tm_p = np.array([classifier_tm(res.g_slot, temp, CLF_SEEDS)
-                     for res in runs])
-    tm_j = np.array([classifier_tm(c["g_slot"], temp, CLF_SEEDS)
-                     for c in ref["chains"]])
     spread = math.sqrt((tm_p.var(ddof=1) + tm_j.var(ddof=1)) / 2.0)
     se = spread * math.sqrt(2.0 / len(seeds))
     diff = float(tm_p.mean() - tm_j.mean())
@@ -2425,7 +2614,7 @@ def phase_eam_physics(name, table, engine="cellmc"):
         f"port {tm_pipe}, JAX gather {np.round(tm_jax, 1).tolist()}; chain "
         f"{seeds[0]}: port {tm_pipe[0]} K against the JAX cellmc leg's "
         f"1766.3 K (eam_tm_ab.json clong): {abs(tm_pipe[0] / 1766.3 - 1):.4f};"
-        f" {dt:.1f} s on {name}")
+        f" {dt:.1f} s since the chains started on {name}")
     check(abs(diff) < Z_PHYS * se, f"[{tag}] T_m on the port's chains "
           f"differs from T_m on the JAX chains: {diff:.1f} K, se {se:.1f}")
 
@@ -2946,23 +3135,34 @@ def phase_golden_hmc(name):
 
 # ---------------------------------------------------------------------------
 # multi-process: the cellmc engines per replica shard (parallel/mesh.py,
-# parallel/cellmc_sharded.py), two ranks sharing the card over gloo
+# parallel/cellmc_sharded.py) and the gather engine over the process group
+# (parallel/ensemble.py), two ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 
 SHARD_RANKS = 2
-SHARD_TIMEOUT = 300         # seconds for both ranks, set-up included
+SHARD_TIMEOUT = 600         # seconds for both ranks, set-up included
 
 
 def brute_pe(style, pot, pos, box):
     """O(N^2) minimum-image total energy of one configuration: LJ through
-    ops/energy.py, EAM from the Chebyshev series the kernels sample."""
+    ops/energy.py; EAM from the setfl splines the gather engine samples
+    (``models.eam.EAMTables``) or from the Chebyshev series the kernels
+    sample."""
     if style == "pair":
         return float(pair_energy_virial(pot, pos, box)[0])
     d = min_image(pos[None, :, :] - pos[:, None, :], box)
     u = (d * d).sum(-1)
     n = pos.shape[0]
-    rc = float(np.float32(pot.rc))
+    rc = float(np.float32(float(pot.rc)))
     mask = (u < rc * rc) & ~torch.eye(n, dtype=torch.bool, device=pos.device)
+    if isinstance(pot, eam_mod.EAMTables):
+        r = torch.sqrt(torch.where(mask, u, 1.0))
+        rphi, _ = eam_mod.spline_eval_t(pot.rphi_coef, pot.dr, r)
+        rho_r, _ = eam_mod.spline_eval_t(pot.rho_coef, pot.dr, r)
+        rho = torch.where(mask, rho_r, 0.0).double().sum(-1)
+        f, _ = eam_mod.spline_eval_t(pot.f_coef, pot.drho, rho.float())
+        return float(0.5 * torch.where(mask, rphi / r, 0.0).double().sum()
+                     + f.double().sum())
     phi = torch.where(mask, eam_cheb.cheb_eval(pot.c_phi, pot.u_lo,
                                                pot.u_hi, u), 0.0)
     rho = torch.where(mask, eam_cheb.cheb_eval(pot.c_rho, pot.u_lo,
@@ -2973,20 +3173,23 @@ def brute_pe(style, pot, pos, box):
     return float(0.5 * phi.double().sum() + f.double().sum())
 
 
-def two_chunks(cfg, setfl, dev, checkpoint=None):
+def two_chunks(cfg, setfl, dev, checkpoint=None, engine="cellmc"):
     """set-up, one chunk (checkpointed into ``checkpoint`` if given), then
-    a timed one: (setup, outputs of the timed chunk, its seconds, its
-    attempted moves, the first chunk's diag)."""
-    setup = runner.setup_run(cfg, setfl=setfl, engine="cellmc", device=dev)
+    a timed one with ENS.COUNTS from 0 (the gather engine's, whose chunks
+    keep their frames): (setup, outputs of the timed chunk, its seconds,
+    its attempted moves, the first chunk's diag)."""
+    traj = engine == "gather"       # both chunks: one run function
+    setup = runner.setup_run(cfg, setfl=setfl, engine=engine, device=dev)
     setup, *_, d0 = runner.run_sampling(setup, write_files=False,
-                                        write_traj=False,
+                                        write_traj=traj,
                                         checkpoint_path=checkpoint)
     m0 = int(setup.moves_tried)
     # the ranks meet first: rank 0's checkpoint write stays out of the
     # other ranks' timed chunk
     mesh.barrier()
+    ENS.reset_counts()
     t = runner.timed(setup.device)
-    out = runner.run_sampling(setup, write_files=False, write_traj=False)
+    out = runner.run_sampling(setup, write_files=False, write_traj=traj)
     secs = runner.timed(setup.device) - t
     return out[0], out[1:], secs, int(out[0].moves_tried) - m0, d0
 
@@ -3084,9 +3287,86 @@ def sharded_style(style, rank, dev, table, ckdir):
                 ck_mb=os.path.getsize(ck) / 1e6, rlaunches=rlaunches)
 
 
+def sharded_gather_cfgs():
+    """The sharded phase's gather configurations, at full width: gather-
+    full's LJ one in chunks of 1 record x 2 sweeps, eam-gather-full's EAM
+    one in chunks of 1 record x 1 sweep."""
+    return {"pair": dataclasses.replace(gather_full_cfg(), nsmpl=1, mod=2),
+            "eam": dataclasses.replace(eam_gather_full_cfg(), nsmpl=1,
+                                       mod=1)}
+
+
+def host_chunk(recs, frames, hist, xacc, diag):
+    """A chunk's outputs on the host, as ``hold_chunk`` takes them."""
+    return (None, host_record(recs), (frames[0].cpu(), frames[1].cpu()),
+            hist.cpu(), xacc.cpu(), diag)
+
+
+def sharded_gather_style(style, rank, dev, table, ckdir):
+    """One rank's share of the sharded phase for the gather engine at full
+    width (``sharded_gather_cfgs``): two chunks of run_sampling over the
+    process group, the first checkpointed into ``ckdir``, then the second
+    again on a fresh set-up restored from that checkpoint, bit for bit.
+    Rank 0 also returns its timed chunk on the host, for the parent's
+    one-process run of it."""
+    cfg = sharded_gather_cfgs()[style]
+    setfl = table if style == "eam" else None
+    tag = f"sharded gather {style} rank {rank}"
+    ck = os.path.join(ckdir, f"gather-{style}.ckpt.npz")
+    setup, (recs, frames, hist, xacc, diag), secs, moves, d0 = two_chunks(
+        cfg, setfl, dev, checkpoint=ck, engine="gather")
+    counts = dict(ENS.COUNTS)
+    r, rl = setup.t_grid.shape[0], setup.states.pos.shape[0]
+    check(rl * SHARD_RANKS == r, f"[{tag}] shard of {rl} of {r} replicas")
+    check(d0 == 0 and diag == 0, f"[{tag}] diag {d0}, {diag}")
+    check(tuple(recs.pe.shape) == (cfg.nsmpl, r),
+          f"[{tag}] records {tuple(recs.pe.shape)}, not whole")
+    for row in hist.cpu().numpy():
+        check(sorted(row.tolist()) == list(range(r)),
+              f"[{tag}] a hist row is no permutation")
+    st = mesh.host_fetch(setup.states, r)            # a collective
+    errs = []
+    if rank == 0:
+        for rr in (0, r - 1):
+            want = brute_pe(style, setup.pot, st.pos[rr], st.box[rr])
+            got = float(recs.pe[-1, rr])
+            lim = (0.05 + 5e-4 * abs(want) if style == "pair"
+                   else 0.02 + 1e-4 * abs(want))
+            errs.append(abs(got - want))
+            check(abs(got - want) < lim, f"[{tag}] replica {rr}: record pe "
+                  f"{got} against brute force {want} (limit {lim})")
+    # the restart: a fresh set-up restored from the first chunk's
+    # checkpoint runs the timed chunk again, bit for bit
+    fresh = runner.setup_run(cfg, setfl=setfl, device=dev)
+    t = runner.timed(fresh.device)
+    fresh = runner.restore_setup(fresh, ck)
+    restore_s = runner.timed(fresh.device) - t
+    fresh, rrecs, _, rhist, rxacc, rdiag = runner.run_sampling(
+        fresh, write_files=False)
+    check(rdiag == diag, f"[{tag}] resumed diag {rdiag}, timed {diag}")
+    for f in dataclasses.fields(recs):
+        check(torch.equal(getattr(rrecs, f.name), getattr(recs, f.name)),
+              f"[{tag}] the resumed chunk's records differ in {f.name}")
+    check(torch.equal(rhist, hist) and torch.equal(rxacc, xacc),
+          f"[{tag}] the resumed chunk's hist or xacc differ")
+    rst, rslots = mesh.host_fetch((fresh.states, fresh.slot_of), r)
+    slots = mesh.host_fetch(setup.slot_of, r)
+    for f in ("pos", "box", "pe"):
+        check(torch.equal(getattr(rst, f), getattr(st, f)),
+              f"[{tag}] the resumed chunk's {f} differ")
+    check(torch.equal(rslots, slots),
+          f"[{tag}] the resumed chunk's slot_of differ")
+    return dict(secs=secs, sweeps=cfg.nsmpl * cfg.mod, moves=moves,
+                counts=counts, rl=rl, r=r, pe_err=errs, restore_s=restore_s,
+                ck_mb=os.path.getsize(ck) / 1e6,
+                chunk=host_chunk(recs, frames, hist, xacc, diag)
+                if rank == 0 else None)
+
+
 def sharded_rank(rank, port, table, ckdir, queue):
-    """A spawned rank: both styles over the process group; puts (rank,
-    result or the traceback) on ``queue``."""
+    """A spawned rank: both cellmc styles, then both gather styles, over
+    the process group; puts (rank, result or the traceback) on
+    ``queue``."""
     import traceback
     try:
         dev = mesh.rank_device("cuda", SHARD_RANKS, rank)
@@ -3095,12 +3375,16 @@ def sharded_rank(rank, port, table, ckdir, queue):
         try:
             res = {s: sharded_style(s, rank, dev, table, ckdir)
                    for s in ("pair", "eam")}
+            res.update({f"gather-{s}": sharded_gather_style(
+                s, rank, dev, table, ckdir) for s in ("pair", "eam")})
         finally:
             mesh.shutdown()
         res["backend"] = backend
         res["foreign"] = sorted(m for m in sys.modules if m.split(".")[0]
                                 in ("jax", "neuralmelting_tpu"))
-        queue.put((rank, res))
+        # pickled by value: the queue's own pickler would share the
+        # tensors' storage with this process, which exits first
+        queue.put((rank, pickle.dumps(res)))
     except Exception:
         queue.put((rank, traceback.format_exc()))
 
@@ -3139,9 +3423,9 @@ def phase_sharded(name, table):
                 check(time.perf_counter() - t < SHARD_TIMEOUT,
                       f"[sharded] ranks {late} passed {SHARD_TIMEOUT} s")
                 continue
-            check(isinstance(out, dict), f"[sharded] rank {rank} failed:\n"
+            check(isinstance(out, bytes), f"[sharded] rank {rank} failed:\n"
                   f"{out}")
-            res[rank] = out
+            res[rank] = pickle.loads(out)
     finally:
         for p in procs:
             p.join(timeout=30)
@@ -3187,9 +3471,67 @@ def phase_sharded(name, table):
             + "; ".join(f"rank {k} {v[style]['rlaunches']}"
                         for k, v in sorted(res.items()))
             + f" on {name}")
+    for style in ("pair", "eam"):
+        hold_sharded_gather(name, table, style, res)
     log(f"[sharded] the second chunk of each, on the host's clock after "
         f"a device sync; the ranks share one card, so this is no scaling "
         f"figure; ranks {ranks_s:.1f} s")
+
+
+def hold_sharded_gather(name, table, style, res):
+    """The ranks' gather chunks (``res``, by rank) against the same chunks
+    on this one process, whole R: the ranks make its decisions (the
+    sharding folds nothing into any seed), their energies and frames
+    within the gather limits (``hold_chunk``); the report of both."""
+    cfg = sharded_gather_cfgs()[style]
+    setup, out, secs, _, d0 = two_chunks(
+        cfg, table if style == "eam" else None, DEV, engine="gather")
+    counts = dict(ENS.COUNTS)
+    check(d0 == 0 and out[4] == 0, f"[sharded] one process gather "
+          f"{style}: diag {d0}, {out[4]}")
+    scale = None
+    if style == "eam":
+        # EAM's virial nearly cancels: held to its terms' magnitudes
+        st = setup.states
+        scale = {"virial": EE.virial_scale(setup.pot, st.pos, st.box,
+                                           setup.nls)}
+    tag = f"sharded gather {style}"
+    err = hold_chunk(res[0][f"gather-{style}"]["chunk"], (setup, *out),
+                     tag, scale=scale)
+    sweeps = cfg.nsmpl * cfg.mod
+    g = {k: v[f"gather-{style}"] for k, v in sorted(res.items())}
+
+    def a_sweep(c):
+        return (f"rebuilds {c['rebuilds'] / sweeps:.2f}, host syncs "
+                f"{c['syncs'] / sweeps:.2f}")
+
+    per = "; ".join(
+        f"rank {k} {v['secs']:.4f} s, {1e3 * v['secs'] / sweeps:.1f} ms"
+        f" a sweep ({v['rl']} replicas): {a_sweep(v['counts'])} (each "
+        f"a collective), remote rebuilds "
+        f"{v['counts']['remote_rebuilds'] / sweeps:.2f} a sweep"
+        for k, v in g.items())
+    log(f"[{tag}] R={g[0]['r']} x {setup.natoms} atoms, 1 record x "
+        f"{sweeps} sweeps a chunk, over {SHARD_RANKS} ranks on one card "
+        f"({res[0]['backend']}): diag 0, hist rows permutations, record "
+        f"pe against brute force |err| "
+        + ", ".join(f"{e:.3e}" for e in g[0]["pe_err"])
+        + f"; {per}; collectives a sweep: the host syncs + 1 shrink min"
+        f" + {cfg.nsmpl / sweeps:.2f} exchange gathers; one process "
+        f"{secs:.4f} s, {1e3 * secs / sweeps:.1f} ms a sweep, "
+        f"{a_sweep(counts)} a sweep on {name}")
+    log(f"[{tag}] the ranks' timed chunk against this process's: hist, "
+        f"xacc and decisions equal, pe rel {err['pe']:.2e}, virial "
+        f"{err['virial']:.2e}" + (" of its terms' magnitudes" if scale
+                                   else "")
+        + f", vol {err['vol']:.2e}, frames {err['pos']:.2e} of the box "
+        f"edge; restart: a {g[0]['ck_mb']:.1f} MB checkpoint of the "
+        "first chunk, restored on fresh set-ups in "
+        + ", ".join(f"{v['restore_s']:.4f} s on rank {k}"
+                    for k, v in g.items())
+        + " (barrier, load, lists, cache and energies on the shard); "
+        "the resumed chunk equals the timed one bit for bit (records, "
+        f"hist, xacc, diag, pos, box, pe, slot_of) on {name}")
 
 
 def compare_probe(a, b, passes):
@@ -3272,8 +3614,6 @@ def main():
               ("coexist", lambda: phase_coexist(name)),
               ("sweep", lambda: phase_sweep(name)),
               ("eam-physics", lambda: phase_eam_physics(name, table)),
-              ("eam-gather-physics",
-               lambda: phase_eam_physics(name, table, engine="gather")),
               ("serial-small", phase_serial_small),
               ("serial-full", lambda: phase_serial_full(name)),
               ("serial-run", lambda: phase_serial_run(name)),
