@@ -1127,8 +1127,8 @@ def phase_gather_small(name):
 # that share the card, each taking chains until none is left, or, with
 # 0, one after another in this process. Processes on one card take turns
 # on it: the LJ chains ran slower in 2, 4 or 8 processes than in this
-# one; the EAM chains gain from the processes' overlapped host time and
-# set-up (PERF.md, PR 17)
+# one; the EAM phase gains from training the classifiers while its pool
+# runs, once for both engines' JAX-chain gates (PERF.md section 6)
 PHYS_WORKERS = {"physics": 0, "gather-physics": 0, "eam-physics": 8}
 PHYS_TIMEOUT = 900          # seconds for a phase's chains
 
