@@ -300,6 +300,36 @@ Phases, in order (any failed check exits non-zero):
                    the only one to run on graph replays): ms a sweep,
                    attempted moves/s, rebuilds, host syncs and graph
                    replays a sweep, K, the cells and peak memory;
+  The dense engine (the JAX package's --engine dense, LJ; no TPU kernel:
+  its stages replayed from CUDA graphs, its colour substeps and energy
+  row sums compiled by torch.compile):
+  15b. dense-small — the physics phase's configuration (256 atoms, a
+                   2x12 grid, seed 7) cut to 2 records x 2 sweeps, so
+                   that dense-physics compiles nothing more: a record
+                   block's draws on the card against the CPU's, bit for
+                   bit (ln u: ulps printed); the chunk through CUDA graphs
+                   equal to its stages run eagerly on the card, bit for
+                   bit (states, keys, ghost map, frames, hist, xacc);
+                   three moves' dE and dW a replica and every replica's
+                   record pe and virial against brute-force minimum image
+                   within the JAX dense tests' limits; the same chunk on
+                   the CPU beside it (hist, xacc and decisions printed,
+                   not gated);
+  15c. dense-physics — the physics phase's configuration, gate and JAX
+                   chains through melting_pipeline(engine="dense"), one
+                   after another in this process: every chain diag 0 with
+                   a finite T_m and 800 dense sweeps, the mean T_m(P*=1)
+                   within 2% of 0.78; seconds a chain, ms, rebuilds and
+                   host syncs a sweep;
+  15d. dense-full — gather-full's configuration (4096 atoms, the 4x16
+                   grid, R=64, seed 1234), two chunks of 2 records x 4
+                   sweeps (the first compiles and captures): diag 0; ms,
+                   rebuilds, host syncs and graph replays a sweep, peak
+                   memory; replicas 0 and 63's record pe and virial
+                   against brute force within the JAX total's limits
+                   (their dE and dW printed: at this box the f32
+                   cancellation in |r|^2 - 2 r.p + |p|^2 exceeds the
+                   limits the JAX tests set at 256 atoms);
   16. gather-full — (5d above) last.
 
 The last lines are the card's name and power limit (nvidia-smi), the
@@ -380,19 +410,23 @@ from neuralmelting_tpu_torch.ops import _build
 from neuralmelting_tpu_torch.ops import cellmc as CK
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
+from neuralmelting_tpu_torch.ops import dense_delta as DD
+from neuralmelting_tpu_torch.ops import ghosts as GH
 from neuralmelting_tpu_torch.ops import eam_energy as EE
 from neuralmelting_tpu_torch.ops import jrandom as J
 from neuralmelting_tpu_torch.ops import lj_delta as LD
 from neuralmelting_tpu_torch.ops import neighbors as NB
 from neuralmelting_tpu_torch.parallel import ensemble as ENS
 from neuralmelting_tpu_torch.parallel import mesh
-from neuralmelting_tpu_torch.ops.energy import min_image, pair_energy_virial
+from neuralmelting_tpu_torch.ops.energy import (delta_move_brute, min_image,
+                                                pair_energy_virial)
 from neuralmelting_tpu_torch.pipeline import melting_pipeline
 from neuralmelting_tpu_torch.refimpl import cpu_ref as CPU_REF
 from neuralmelting_tpu_torch.profile_chunk import (_device_ms, configs,
                                                    kernel_label)
 from neuralmelting_tpu_torch.sampler import cellmc as SC
 from neuralmelting_tpu_torch.sampler import checkerboard as CB
+from neuralmelting_tpu_torch.sampler import dense as DS
 from neuralmelting_tpu_torch.sampler import moves, serial
 from neuralmelting_tpu_torch.sampler.state import FIELDS
 from neuralmelting_tpu_torch.utils import MetricsLogger
@@ -1129,7 +1163,8 @@ def phase_gather_small(name):
 # on it: the LJ chains ran slower in 2, 4 or 8 processes than in this
 # one; the EAM phase gains from training the classifiers while its pool
 # runs, once for both engines' JAX-chain gates (PERF.md section 6)
-PHYS_WORKERS = {"physics": 0, "gather-physics": 0, "eam-physics": 8}
+PHYS_WORKERS = {"physics": 0, "gather-physics": 0, "dense-physics": 0,
+                "eam-physics": 8}
 PHYS_TIMEOUT = 900          # seconds for a phase's chains
 
 
@@ -1140,12 +1175,14 @@ def host_record(rec):
 
 
 def run_chain(cfg, kw):
-    """One validation chain: (melting_pipeline's result, ENS.COUNTS, its
-    seconds)."""
-    ENS.reset_counts()
+    """One validation chain: (melting_pipeline's result, its engine's
+    COUNTS (the gather engine's ENS.COUNTS, the dense engine's
+    DS.COUNTS), its seconds)."""
+    counts = DS if kw.get("engine") == "dense" else ENS
+    counts.reset_counts()
     t = time.perf_counter()
     res = melting_pipeline(cfg, **kw)
-    return res, dict(ENS.COUNTS), time.perf_counter() - t
+    return res, dict(counts.COUNTS), time.perf_counter() - t
 
 
 def chain_worker(jobs, results):
@@ -1385,6 +1422,228 @@ def phase_gather_full(name):
         f"{busy / wall:.4f}; the most device time: " + ", ".join(
             f"{kernel_label(ev.key)} {_device_ms(ev):.1f} ms x{ev.count}"
             for ev in sorted(kern, key=_device_ms, reverse=True)[:4]))
+
+
+# ---------------------------------------------------------------------------
+# the dense engine (no TPU kernel: torch stages replayed from CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# the JAX package's own limits against brute force (tests/test_dense.py):
+# dE and dW rtol, dE atol, dW atol; the total's pe rtol and atol, virial
+# atol
+D_RTOL, D_DE_ABS, D_DW_ABS = 2e-4, 2e-4, 2e-3
+D_TOT_RTOL, D_PE_ABS, D_VIR_ABS = 3e-4, 1e-2, 0.1
+
+
+def dense_chunk(cfg, device, graphs=True):
+    """setup_run(engine="dense") + one chunk: (setup, recs, frames, hist,
+    xacc, diag) as run_sampling returns them. ``graphs`` False runs the
+    run function of the same parameters with its stages eager."""
+    setup = runner.setup_run(cfg, engine="dense", device=device)
+    if graphs:
+        return runner.run_sampling(setup, write_files=False)
+    run = DS.make_dense_run_fn(
+        setup.us.kb, setup.us.p2e, setup.cellcfg,
+        **runner.dense_run_kwargs(setup, cfg.nsmpl, True), graphs=False)
+    (states, gms, slot_of, recs, frames, hist, xacc, diag, _) = run(
+        setup.states, setup.gms, setup.slot_of,
+        J.key(cfg.seed + 1).to(setup.device), setup.pot, setup.table,
+        setup.t_grid, setup.p_grid)
+    return (dataclasses.replace(setup, states=states, gms=gms,
+                                slot_of=slot_of), recs, frames, hist, xacc,
+            int(diag))
+
+
+def dense_brute(setup, tag, movers=3, seed=0, gate=("de", "dw", "pe",
+                                                    "virial")):
+    """The dense energies of ``setup`` against brute-force minimum image
+    (ops/energy.py) on the card: dE and dW of ``movers`` random moves a
+    replica, and each replica's pe and virial (the record's, from the
+    ghost map) against the brute total of its synced positions. Returns
+    the largest errors in units of the JAX package's limits (D_*); those
+    named in ``gate`` must be within them."""
+    st, gm, pot = setup.states, setup.gms, setup.pot
+    r, n = st.pos.shape[:2]
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.stack([torch.randperm(n, generator=gen)[:movers]
+                       for _ in range(r)]).to(DEV)
+    disp = ((torch.rand((r, movers, 3), generator=gen) - 0.5) * 0.3).to(DEV)
+    old = gm.pos_ext.gather(1, ids[..., None].expand(-1, -1, 3))
+    de, dw = DD.delta_moves_dense(pot, gm, ids.int(), old, old + disp,
+                                  with_virial=True)
+    err = {"de": 0.0, "dw": 0.0, "pe": 0.0, "virial": 0.0}
+    for k in range(r):
+        for m in range(movers):
+            i = int(ids[k, m])
+            bde, bdw = delta_move_brute(pot, st.pos[k], st.box[k], i,
+                                        st.pos[k, i] + disp[k, m])
+            for f, got, want, atol in (("de", de[k, m], bde, D_DE_ABS),
+                                       ("dw", dw[k, m], bdw, D_DW_ABS)):
+                e = float((got - want).abs() / (atol + D_RTOL * want.abs()))
+                err[f] = max(err[f], e)
+        bpe, bvir = pair_energy_virial(pot, st.pos[k], st.box[k])
+        for f, got, want, atol in (("pe", st.pe[k], bpe, D_PE_ABS),
+                                   ("virial", st.virial[k], bvir,
+                                    D_VIR_ABS)):
+            e = float((got - want).abs() / (atol + D_TOT_RTOL * want.abs()))
+            err[f] = max(err[f], e)
+    check(max(err[f] for f in gate) <= 1.0, f"[{tag}] dense energies "
+          f"against brute force beyond the JAX limits (1 = at the limit): "
+          f"{err}")
+    return err
+
+
+def dense_small_cfg():
+    """The physics phase's configuration (256 atoms, a 2x12 grid, seed 7)
+    cut to 2 records of 2 sweeps: dense-physics then needs no compile of
+    its own."""
+    return dataclasses.replace(validation_cfg(7), name="dsmall", nsmpl=2,
+                               mod=2, ncut=0)
+
+
+def phase_dense_small(name):
+    """A short chunk on the card (``dense_small_cfg``): a record block's
+    draws against the CPU's, bit for bit but ln u (ulps printed); the chunk through CUDA graphs against its stages run
+    eagerly, bit for bit; dE, dW and the record energies against
+    brute-force minimum image, within the JAX dense tests' limits;
+    against the port's CPU run of the same chunk (printed, not gated:
+    energies part at f32 rounding there)."""
+    cfg = dense_small_cfg()
+    g = runner.setup_run(cfg, engine="dense", device=DEV)
+    cc = g.cellcfg
+    kw = runner.dense_run_kwargs(g, cfg.nsmpl, False)
+    dg, dc = (DS.block_draws(k, cfg.mod, kw["npasses"], kw["nvol"],
+                             cc.ncolors, cc.cells_per_color)
+              for k in (g.states.key, g.states.key.cpu()))
+    for k, a, b in zip(("key", "volume steps", "shift", "u", "disp"), dg,
+                       dc):
+        check(torch.equal(a.cpu(), b), f"[dense-small] draws differ: {k}")
+    ln_ulps = max(f32_ulps(dg[k], dc[k]) for k in (5, 6))
+    DS.reset_counts()
+    a = dense_chunk(cfg, DEV)
+    counts = dict(DS.COUNTS)
+    e = dense_chunk(cfg, DEV, graphs=False)
+    for f in FIELDS:
+        check(torch.equal(getattr(a[0].states, f), getattr(e[0].states, f)),
+              f"[dense-small] graphs against eager: {f} differs")
+    for f in GH.FIELDS:
+        check(torch.equal(getattr(a[0].gms, f), getattr(e[0].gms, f)),
+              f"[dense-small] graphs against eager: ghost map {f} differs")
+    check(torch.equal(a[0].states.key, e[0].states.key)
+          and torch.equal(a[2][0], e[2][0]) and torch.equal(a[3], e[3])
+          and torch.equal(a[4], e[4]),
+          "[dense-small] graphs against eager: keys, frames, hist or xacc "
+          "differ")
+    check(a[5] == 0, f"[dense-small] diag {a[5]}")
+    err = dense_brute(a[0], "dense-small")
+    c = dense_chunk(cfg, "cpu")
+    same = torch.equal(a[3].cpu(), c[3]) and torch.equal(a[4].cpu(), c[4])
+    dec = all(torch.equal(getattr(a[1], f).cpu(), getattr(c[1], f))
+              for f in ("acc_pos", "acc_vol", "dpos", "dvol"))
+    pe_rel = float(((a[1].pe.cpu() - c[1].pe) / c[1].pe).abs().max())
+    log(f"[dense-small] chunk of 2 x 2 sweeps, R=24 x 256 atoms, xacc "
+        f"{a[4].tolist()}: CUDA graphs equal eager bit for bit; against "
+        "brute-force minimum image (1 = the JAX tests' limit): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in err.items())
+        + f"; a block's draws equal the CPU's bit for bit, ln u within "
+        f"{ln_ulps} f32 ulps; against the CPU: hist and xacc equal {same}, "
+        f"decisions "
+        f"equal {dec}, record pe rel {pe_rel:.2e}; {counts} on {name}")
+
+
+def phase_dense_physics(name):
+    """The physics phase's configuration and gate on the dense engine
+    (melting_pipeline(engine="dense")), printed beside the JAX gather
+    chains of the same seeds, one after another in this process."""
+    with open(LJ_REFERENCE) as f:
+        ref = json.load(f)
+    t = time.perf_counter()
+    chains, _ = physics_chains("dense-physics", [
+        (seed, validation_cfg(seed), dict(nbins=48, model="mlp", epochs=400,
+                                          band=2, engine="dense"))
+        for seed in ref["chain_seeds"]])
+    tms, secs, ms_sweep, rb, sy = [], [], [], [], []
+    for seed in ref["chain_seeds"]:
+        cfg = validation_cfg(seed)
+        res, counts, sec = chains[seed]
+        sweeps = counts["sweeps"]
+        check(sweeps == cfg.nsmpl * cfg.mod, f"[dense-physics] seed {seed}: "
+              f"{sweeps} dense sweeps, not {cfg.nsmpl * cfg.mod}")
+        check(res.diag == 0 and np.isfinite(res.tm).all(),
+              f"[dense-physics] seed {seed}: diag {res.diag}, T_m {res.tm}")
+        secs.append(sec)
+        ms_sweep.append(1e3 * res.seconds["sampling"] / sweeps)
+        rb.append(counts["rebuilds"] / sweeps)
+        sy.append(counts["syncs"] / sweeps)
+        tms.append(res.tm)
+        log(f"[dense-physics] seed {seed}: T_m(P*)={np.round(res.tm, 4)}; "
+            f"{sec:.1f} s (sampling {res.seconds['sampling']:.1f} s, "
+            f"{ms_sweep[-1]:.2f} ms a sweep, {rb[-1]:.2f} rebuilds and "
+            f"{sy[-1]:.2f} syncs a sweep), diag {res.diag}")
+    port = np.asarray(tms)[:, 0]
+    jax_tm = np.asarray([c["tm"][0] for c in ref["chains"]])
+    mean = float(port.mean())
+    err = abs(mean / 0.78 - 1.0)
+    log(f"[dense-physics] T_m(P*=1) by chain (seeds {ref['chain_seeds']}): "
+        f"port dense {np.round(port, 4).tolist()}, JAX gather "
+        f"{np.round(jax_tm, 4).tolist()}")
+    log(f"[dense-physics] mean T_m(P*=1) port dense {mean:.4f} (sd "
+        f"{port.std(ddof=1):.4f}), JAX gather {jax_tm.mean():.4f}; "
+        f"|mean/0.78 - 1| = {err:.4f} (gate 0.02: "
+        f"{'PASS' if err <= 0.02 else 'MISS'}); {np.mean(secs):.1f} s a "
+        f"chain, {np.mean(ms_sweep):.2f} ms a sweep (sampling incl. set-up),"
+        f" {np.mean(rb):.2f} rebuilds and {np.mean(sy):.2f} host syncs a "
+        f"sweep; {time.perf_counter() - t:.1f} s in all on {name}")
+    check(err <= 0.02,
+          f"[dense-physics] mean T_m(P*=1)={mean} misses the 2% gate")
+
+
+def phase_dense_full(name):
+    """gather-full's configuration (4096 LJ atoms, the JAX CLI's 4x16 grid,
+    R=64, seed 1234) on the dense engine: two chunks of 2 records x 4
+    sweeps through setup_run(engine="dense"); ms a sweep, rebuilds and
+    host syncs a sweep, peak memory; the record energies of replicas 0
+    and 63 against brute force within the JAX total's limits, and a few
+    moves' dE and dW (printed: at this box the f32 cancellation in
+    |r|^2 - 2 r.p + |p|^2, with |p|^2 up to ~1300, exceeds the limits
+    the JAX tests set at 256 atoms, in the JAX algorithm too)."""
+    cfg = gather_full_cfg()
+    sweeps = cfg.nsmpl * cfg.mod
+    torch.cuda.reset_peak_memory_stats()
+    t = runner.timed(DEV)
+    setup = runner.setup_run(cfg, engine="dense", device=DEV)
+    t_setup = runner.timed(DEV) - t
+    gm = setup.gms
+    for k in range(2):
+        DS.reset_counts()
+        t = runner.timed(DEV)
+        setup, _, _, _, xacc, diag = runner.run_sampling(
+            setup, write_files=False, write_traj=False)
+        dt = runner.timed(DEV) - t
+        check(diag == 0, f"[dense-full] chunk {k} diag {diag}")
+        what = "captures the CUDA graphs" if k == 0 else "replays them"
+        log(f"[dense-full] chunk {k} ({what}): {dt:.2f} s, "
+            f"{1e3 * dt / sweeps:.1f} ms a "
+            f"sweep, {DS.COUNTS['rebuilds'] / sweeps:.2f} rebuilds, "
+            f"{DS.COUNTS['syncs'] / sweeps:.2f} host syncs and "
+            f"{DS.COUNTS['replays'] / sweeps:.2f} graph replays a sweep, xacc"
+            f" {xacc.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sub = dataclasses.replace(
+        setup, states=setup.states.__class__(**{
+            f: getattr(setup.states, f)[[0, 63]] for f in FIELDS}),
+        gms=GH.GhostMap(**{f: getattr(setup.gms, f)[[0, 63]]
+                              for f in GH.FIELDS}))
+    err = dense_brute(sub, "dense-full", movers=2, gate=("pe", "virial"))
+    log(f"[dense-full] R=64 x 4096 atoms, cells {setup.cellcfg.ncell}, "
+        f"{setup.cellcfg.cells_per_color} movers a colour, "
+        f"{CB.default_npasses(4096, setup.cellcfg)} passes and "
+        f"{runner.nvol_per_sweep(cfg, 4096)} volume trials a sweep, shell "
+        f"{setup.shell}, gcap {setup.gcap} (N + gcap = "
+        f"{gm.pos_ext.shape[1]}, {int(gm.nghost.max())} images at set-up): "
+        f"set-up {t_setup:.2f} s; peak memory {peak:.2f} GiB; replicas 0 "
+        "and 63 against brute force (1 = the JAX tests' limit): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in err.items()) + f" on {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -3623,6 +3882,9 @@ def main():
               ("probe", lambda: phase_probe(name)),
               ("eam-longrc", lambda: phase_eam_longrc(name)),
               ("eam-gather-full", lambda: phase_eam_gather_full(name, table)),
+              ("dense-small", lambda: phase_dense_small(name)),
+              ("dense-physics", lambda: phase_dense_physics(name)),
+              ("dense-full", lambda: phase_dense_full(name)),
               ("gather-full", lambda: phase_gather_full(name)))
     for ph, fn in phases:
         t = time.perf_counter()

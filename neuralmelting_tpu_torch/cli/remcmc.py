@@ -64,8 +64,9 @@ def main(argv=None):
                     help="gather (default) = checkerboard passes over "
                          "neighbour lists, LJ and EAM, the only engine with "
                          "HMC (--phmc); cellmc = the cell-MC CUDA kernels (LJ "
-                         "stride-2, EAM stride-3 Chebyshev); dense is not "
-                         "ported (the runner names its ROADMAP item)")
+                         "stride-2, EAM stride-3 Chebyshev); dense = "
+                         "checkerboard passes with trial energies against "
+                         "every atom and its ghost images (LJ, one process)")
     ap.add_argument("--restart", default=None,
                     help="checkpoint .npz to resume from")
     ap.add_argument("--profile", default=None, metavar="DIR",

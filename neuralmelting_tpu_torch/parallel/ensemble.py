@@ -28,10 +28,14 @@ gathered values (``tempering.exchange_gathered``), which also OR the
 diag bits. The collectives sit between the stages, never inside a
 captured graph. The ranks so make the decisions of one process.
 
-A sweep is four kinds of stage, each a function of tensors only: the
-head (the replica keys split, dpos_eff, every pass's draws, the first
-rebuild decision), the list build, a pass (which ends with the next two
-rebuild decisions) and the tail (volume trials, HMC, the diag bits). On
+The draws that do not depend on the state (the replica keys' chain,
+every pass's draws, the volume trials') are made for a span of sweeps
+at once (``CB.draw_spans``), in one stage, as the sweeps would make them
+one by one. A sweep is four kinds of stage, each a function of tensors
+only: the head (dpos_eff, the passes' displacements scaled by it, the
+first rebuild decision), the list build, a pass (which ends with the
+next two rebuild decisions) and the tail (volume trials, HMC, the diag
+bits). On
 the card each stage is replayed from a CUDA graph captured from the same
 function at its first call (one graph per stage and input shape): the
 same kernels in the same order, so the same bits as eager execution
@@ -57,7 +61,7 @@ from neuralmelting_tpu_torch.sampler import checkerboard as CB
 from neuralmelting_tpu_torch.sampler import tempering
 from neuralmelting_tpu_torch.sampler.adapt import adapt_step_sizes
 from neuralmelting_tpu_torch.sampler.driver import make_record, stack_records
-from neuralmelting_tpu_torch.sampler.moves import cbrt
+from neuralmelting_tpu_torch.sampler.moves import cbrt, volume_draws
 from neuralmelting_tpu_torch.sampler.state import box_volume
 
 # host-side counts since the last reset_counts(): sweeps, passes, host
@@ -91,12 +95,14 @@ class _Graphed:
     stream and captures it against static copies of its inputs; every
     call copies its inputs into them (inputs at the positions ``keep``
     only when the caller passes another tensor than last time: they are
-    never changed in place), replays, and returns clones of the outputs.
-    ``fn`` must not read back from the device or copy host data to it.
+    never changed in place), replays, counts the replay in ``counts``
+    (default ``COUNTS``) and returns clones of the outputs. ``fn`` must
+    not read back from the device or copy host data to it.
     """
 
-    def __init__(self, fn, keep=()):
+    def __init__(self, fn, keep=(), counts=None):
         self.fn, self.keep, self.cache = fn, frozenset(keep), {}
+        self.counts = COUNTS if counts is None else counts
 
     def __call__(self, *args):
         sig = tuple((tuple(a.shape), a.dtype) for a in args)
@@ -109,7 +115,7 @@ class _Graphed:
             s.copy_(a)
             last[i] = a
         graph.replay()
-        COUNTS["replays"] += 1
+        self.counts["replays"] += 1
         return tuple(o.clone() for o in out)
 
     def _capture(self, args):
@@ -123,6 +129,23 @@ class _Graphed:
         with torch.cuda.graph(graph):
             out = self.fn(*static)
         return graph, static, out, [None] * len(args)
+
+
+def make_stage(graphs: bool, counts=None):
+    """``stage(name, fn, args, keep=())``: ``fn(*args)``, replayed from the
+    CUDA graph kept under ``name`` (``_Graphed``, its replays counted in
+    ``counts``) when ``graphs`` is set and ``args[0]`` lies on the card,
+    else run eagerly."""
+    graphed = {}
+
+    def stage(name, fn, args, keep=()):
+        if not (graphs and args[0].is_cuda):
+            return fn(*args)
+        if name not in graphed:
+            graphed[name] = _Graphed(fn, keep, counts)
+        return graphed[name](*args)
+
+    return stage
 
 
 def _lists(idx, count, ref_pos, ref_box, rlist, overflow=None):
@@ -171,18 +194,34 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
     pops = PO.ops_for_style(style)
     one_pass = CB.make_cb_pass_fn(kb, cellcfg, style)
     tail = CB.make_cb_tail_fn(kb, p2e, nvol, nhmc, nstps, mass, style)
-    graphed = {}
+    stage = make_stage(graphs)
     multi = mesh.process_count() > 1
 
-    def stage(name, fn, args, keep=()):
-        if not (graphs and args[0].is_cuda):
-            return fn(*args)
-        if name not in graphed:
-            graphed[name] = _Graphed(fn, keep)
-        return graphed[name](*args)
+    def draws_(key, span):
+        """``span`` sweeps' state-free draws from the replicas' keys (R,
+        2): (the key after them, each sweep's HMC key (R, span, 2), its
+        volume trials' 2u - 1 and ln u (R, span, nvol), then every pass's
+        ``CB.pass_floats`` (R, span, npasses, ...))."""
+        kpass, kvol, khmc = [], [], []
+        for _ in range(span):
+            key, kp, kv, kh = jrandom.split(key, 4).unbind(-2)
+            kpass.append(kp)
+            kvol.append(kv)
+            khmc.append(kh)
+        dev = key.device
+        pkeys = jrandom.fold_in(torch.stack(kpass, 1)[:, :, None, :],
+                                torch.arange(npasses, device=dev))
+        v2u, vln_u = volume_draws(jrandom.fold_in(
+            torch.stack(kvol, 1)[:, :, None, :],
+            torch.arange(nvol, device=dev)))
+        return (key, torch.stack(khmc, 1), v2u, vln_u,
+                *CB.pass_floats(pkeys, cellcfg.ncolors,
+                                cellcfg.cells_per_color))
 
-    def run_stages(pot, table, states, nls, aux, diag):
-        """One sweep of the stages: (states, nls, aux, diag)."""
+    def run_stages(pot, table, states, nls, aux, diag, khmc, v2u, vln_u,
+                   *floats):
+        """One sweep of the stages from its draws (``draws_``, the sweep's
+        slice): (states, nls, aux, diag)."""
         rc = pot.rc
 
         def stale(ref_pos, ref_box, rlist, pos, box, budget, shrink):
@@ -190,8 +229,7 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                 _lists(None, None, ref_pos, ref_box, rlist), pos, box, rc,
                 budget=budget, shrink=shrink))
 
-        def head(key, dpos, pos, box, dvol, ref_pos, ref_box, rlist):
-            key, kpass, kvol, khmc = jrandom.split(key, 4).unbind(-2)
+        def head(dpos, pos, box, dvol, ref_pos, ref_box, rlist, fdisp):
             # per-replica dpos clamp: checkerboard independence AND enough
             # skin headroom that one pass per fresh rebuild is always legal
             margin_cb = CB.cb_dpos_margin(pops, pot, cellcfg, box)
@@ -201,11 +239,6 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                 0.5 * margin_cb, CB.div(room, 2.0 * _SQ3)))
             dpos_eff = torch.clamp(dpos_eff, min=0.0)
             budget = _SQ3 * dpos_eff        # one move per particle per pass
-            # every pass's draws at once: (R, npasses, ...)
-            pkeys = jrandom.fold_in(kpass[:, None, :],
-                                    torch.arange(npasses, device=key.device))
-            draws = CB.pass_draws(pkeys, cellcfg.ncolors,
-                                  cellcfg.cells_per_color, dpos_eff)
             bits = torch.where(torch.any(margin_cb <= 0.0),
                                CB.DIAG_CB_INVALID, 0).to(torch.int32)
             # the tail's worst isotropic shrink over nvol volume trials
@@ -213,9 +246,9 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
             vol = box_volume(box)
             shrink = torch.min(cbrt(
                 torch.maximum(vol - nvol * dvol, 0.01 * vol) / vol))
-            return (key, kvol, khmc, dpos_eff, budget, shrink, bits,
+            return (dpos_eff, budget, shrink, bits,
                     stale(ref_pos, ref_box, rlist, pos, box, budget, 1.0),
-                    *draws)
+                    CB.scale_disp(fdisp, dpos_eff))
 
         def build(pos, box):
             nl = NB.build(pos, box, NB.f32_rlist(pot.rc_host, skin),
@@ -243,7 +276,7 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
 
         def tail_(pos, box, temp, press, pe, virial, dvol, dt, nav, ntv, nah,
                   nth, sweep, idx, count, ref_pos, ref_box, rlist, overflow,
-                  kvol, khmc, aux):
+                  khmc, v2u, vln_u, aux):
             st = states.replace(pos=pos, box=box, temp=temp, press=press,
                                 pe=pe, virial=virial, dvol=dvol, dt=dt,
                                 nav=nav, ntv=ntv, nah=nah, nth=nth)
@@ -251,7 +284,8 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                                0).to(torch.int32)
             if nvol or nhmc:
                 nl = _lists(idx, count, ref_pos, ref_box, rlist)
-                st, aux = tail(pot, st, nl, aux, kvol, khmc)
+                st, aux = tail(pot, st, nl, aux, None, khmc,
+                               vdraws=(v2u, vln_u))
                 if nhmc:
                     # retroactive exactness check: flag if the trajectory
                     # drifted past the budget (its last energies may be
@@ -276,12 +310,12 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
             COUNTS["rebuilds"] += 1
             return _lists(*stage("build", build, (states.pos, states.box)))
 
-        (key, kvol, khmc, dpos_eff, budget, shrink, bits, flag,
-         *draws) = stage("head", head, (states.key, states.dpos, states.pos,
-                                        states.box, states.dvol, nls.ref_pos,
-                                        nls.ref_box, nls.rlist),
-                         keep=(5, 6, 7))
-        states = states.replace(key=key)
+        shift, order, u, fdisp, ln_u = floats
+        dpos_eff, budget, shrink, bits, flag, disp = stage(
+            "head", head, (states.dpos, states.pos, states.box, states.dvol,
+                           nls.ref_pos, nls.ref_box, nls.rlist, fdisp),
+            keep=(4, 5, 6))
+        draws = (shift, order, u, disp, ln_u)
         diag = diag | bits
         if multi and (nvol or nhmc):
             # the worst shrink over the whole ensemble, as jnp.min is
@@ -308,17 +342,25 @@ def make_ensemble_run_fn(kb, p2e, cellcfg, skin: float, capacity: int,
                         states.pe, states.virial, states.dvol, states.dt,
                         states.nav, states.ntv, states.nah, states.nth,
                         states.sweep, nls.idx, nls.count, nls.ref_pos,
-                        nls.ref_box, nls.rlist, nls.overflow, kvol, khmc,
-                        aux), keep=tuple(range(13, 19)))
+                        nls.ref_box, nls.rlist, nls.overflow, khmc, v2u,
+                        vln_u, aux), keep=tuple(range(13, 19)))
         states = states.replace(pos=pos, box=box, pe=pe, virial=vir, nav=nav,
                                 ntv=ntv, nah=nah, nth=nth, sweep=sweep)
         COUNTS["sweeps"] += 1
         return states, nls, aux, diag | bits
 
     def block_core(pot, table, states, nls, aux, diag, tried):
-        for _ in range(mod):
-            states, nls, aux, diag = run_stages(pot, table, states, nls, aux,
-                                                diag)
+        r = states.pos.shape[0]
+        for span in CB.draw_spans(mod, r * npasses * cellcfg.ncolors
+                                  * cellcfg.cells_per_color):
+            key, *draws = stage(f"draws{span}",
+                                lambda k, span=span: draws_(k, span),
+                                (states.key,))
+            states = states.replace(key=key)
+            for k in range(span):
+                states, nls, aux, diag = run_stages(
+                    pot, table, states, nls, aux, diag,
+                    *(d[:, k] for d in draws))
         # kill f32 drift of the incremental accumulators at every record;
         # also rebuild the potential cache (EAM rho) from scratch
         pe, vir = pops.total(pot, states.pos, states.box, nls)

@@ -3,7 +3,8 @@
 phase classifier -> T_m per pressure, from one call.
 
 Sampling runs on the gather engine (the default, as in the JAX package)
-or the cellmc engine, each for LJ and EAM, in one process; trajectories
+or the cellmc engine, each for LJ and EAM, or the dense engine (LJ), in
+one process; trajectories
 stay on the device through featurization, and only the slot-ordering of
 features and the logistic fits run on the host.
 """
@@ -77,8 +78,9 @@ def melting_pipeline(cfg: RunConfig, setfl: Optional[str] = None,
     for "cpu" (without a usable GPU the default raises). Runs
     ``engine="gather"`` (with HMC when ``cfg.phmc > 0``) and
     ``engine="cellmc"``, each for LJ and for EAM (``element="AL"``, the
-    setfl table ``setfl`` or the synthetic Al table); other engines raise
-    NotImplementedError naming the ROADMAP item that brings them.
+    setfl table ``setfl`` or the synthetic Al table), and
+    ``engine="dense"`` for LJ; other engines raise NotImplementedError
+    naming their ROADMAP item.
 
     init="liquid" pre-melts every replica (runner.liquid_start) for the
     cooling-leg estimate and needs ``classify_with``, the heating leg's

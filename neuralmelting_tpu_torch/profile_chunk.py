@@ -3,6 +3,7 @@
     python3 -m neuralmelting_tpu_torch.profile_chunk          # both paths
     python3 -m neuralmelting_tpu_torch.profile_chunk eam      # or: lj
     python3 -m neuralmelting_tpu_torch.profile_chunk serial   # config 1
+    python3 -m neuralmelting_tpu_torch.profile_chunk gather dense
 
 LJ runs the north-star configuration (bench.py: 4096 atoms, 32x32 (P,T)
 grid, R=1024), EAM scripts/eambench.py's (4096 Al atoms, 16x16 grid,
@@ -13,6 +14,12 @@ torch.profiler. Prints the chunk's wall time and attempted moves/s, the
 device time of every kernel (calls, total ms, share of the device's busy
 time) and the device's idle share, 1 - busy / wall, with the card's name
 and power limit.
+
+``gather`` and ``dense`` take the engine of that name at the LJ
+validation configuration (docs/VALIDATION.md: 256 atoms, a 2x12 grid,
+seed 7), a warm-up chunk of 2 records x 20 sweeps (it compiles and
+captures the CUDA graphs), then one record block of 20 sweeps under
+torch.profiler: the same lines, and the device kernels a sweep.
 
 ``serial`` takes BASELINE config 1's serial chain instead
 (``golden.setup_chain``: 256 LJ atoms), one warm-up sweep, then one sweep
@@ -60,6 +67,15 @@ def configs():
     }
 
 
+def validation_cfg(nsmpl):
+    """docs/VALIDATION.md's LJ configuration (chip_smoke's physics phases,
+    seed 7) at ``nsmpl`` records of 20 sweeps."""
+    return RunConfig(name="val", element="LJ", ncells=(4, 4, 4), npress=2,
+                     ntemp=12, press=(1.0, 5.0),
+                     temp=tuple(np.linspace(0.55, 1.45, 12)), nsmpl=nsmpl,
+                     mod=20, ncut=0, seed=7, dpos0=0.1, dvol0=0.01)
+
+
 def _device_ms(ev):
     t = getattr(ev, "self_device_time_total", None)
     if t is None:
@@ -67,16 +83,18 @@ def _device_ms(ev):
     return t / 1e3
 
 
-def profile_chunk(tag, cfg, setfl):
-    setup = runner.setup_run(cfg, setfl=setfl, engine="cellmc")
-    setup = runner.run_sampling(setup, write_traj=False)[0]   # warm-up
+def profile_chunk(tag, cfg, setfl, engine="cellmc"):
+    setup = runner.setup_run(cfg, setfl=setfl, engine=engine)
+    setup = runner.run_sampling(setup, write_files=False,
+                                write_traj=False)[0]          # warm-up
     torch.cuda.synchronize()
     tried0 = int(setup.moves_tried)
+    nrecords = 1 if engine != "cellmc" else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         setup, _recs, _fr, _hist, _xacc, diag = runner.run_sampling(
-            setup, write_traj=False)
+            setup, nrecords=nrecords, write_files=False, write_traj=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = [(ev.key, ev.count, _device_ms(ev))
@@ -85,11 +103,17 @@ def profile_chunk(tag, cfg, setfl):
             and _device_ms(ev) > 0]
     busy = sum(r[2] for r in rows)
     moves = int(setup.moves_tried) - tried0
-    print(f"[{tag}] chunk of {cfg.nsmpl} records x {cfg.mod} sweeps: wall "
-          f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle share "
-          f"{1.0 - busy / (wall * 1e3):.4f}, diag {diag}, K="
-          f"{setup.geom.kcap}, cells {setup.geom.ncell}, {moves} attempted "
-          f"moves, {moves / wall:.4e} moves/s", flush=True)
+    if engine == "cellmc":
+        what = (f"{cfg.nsmpl} records x {cfg.mod} sweeps", f"K="
+                f"{setup.geom.kcap}, cells {setup.geom.ncell}")
+    else:
+        what = (f"1 record x {cfg.mod} sweeps ({engine})",
+                f"{sum(r[1] for r in rows) / cfg.mod:.1f} device kernels a "
+                f"sweep, cells {setup.cellcfg.ncell}")
+    print(f"[{tag}] chunk of {what[0]}: wall {wall * 1e3:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {1.0 - busy / (wall * 1e3):.4f}, "
+          f"diag {diag}, {what[1]}, {moves} attempted moves, "
+          f"{moves / wall:.4e} moves/s", flush=True)
     if busy <= 0:
         raise SystemExit(f"[{tag}] the profiler saw no device time")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
@@ -167,6 +191,8 @@ def main():
     for tag in sys.argv[1:] or ["lj", "eam"]:
         if tag == "serial":
             profile_serial()
+        elif tag in ("gather", "dense"):
+            profile_chunk(tag, validation_cfg(2), None, engine=tag)
         else:
             profile_chunk(tag, cfgs[tag], table if tag == "eam" else None)
     return 0

@@ -1,10 +1,10 @@
 """Host-side run orchestration: config -> ensemble -> chunks -> files
 (counterpart of ``neuralmelting_tpu.runner``, its single-process gather
-and cellmc paths).
+cellmc and dense paths).
 
 Builds the potential and the replica ensemble from a ``RunConfig`` on a
 ``device`` (the card unless the caller passes ``device="cpu"``) and
-advances it in chunks with tempering. Two engines:
+advances it in chunks with tempering. Three engines:
 
 * ``gather`` (the default, as in the JAX package; LJ and EAM):
   checkerboard passes over per-replica neighbour lists
@@ -18,7 +18,14 @@ advances it in chunks with tempering. Two engines:
   retry from a pre-chunk snapshot. LJ runs on stride-2 cells with
   kernels B1/B2; EAM ("eam/alloy", element "AL") samples the Chebyshev
   refit of its setfl table on stride-3 cells with one mover per cell and
-  a density slab, kernels B3/B4.
+  a density slab, kernels B3/B4;
+* ``dense`` (LJ only, one process, as in the JAX package): checkerboard
+  passes whose trial energies are taken against every atom and its
+  periodic ghost images, with no neighbour list (sampler/dense.py,
+  ops/ghosts.py, ops/dense_delta.py), on the gather engine's stride-4
+  cells at rc, the ghost shell rc + skin; diag bit 4 is GHOST_OVERFLOW.
+  EAM, ``phmc > 0`` and more than one process raise the JAX runner's
+  exceptions before any work.
 
 A chunk can log a ``sampling_chunk`` metrics event, write the
 per-(P, T)-slot .thrm/.traj files (``write_slot_files``) and a checkpoint
@@ -38,9 +45,8 @@ several, and so does a single-process one: ``restore_setup`` loads it
 whole on every rank and keeps the rank's shard. ``exchange=False`` is
 refused there with a ValueError, as in the JAX runner.
 
-Not here: the dense engine (ROADMAP A14, not ported). Unlike the JAX
-runner there is no compile cache (nothing is traced) and no scoped-VMEM
-guard (a TPU compiler limit).
+Unlike the JAX runner there is no compile cache (nothing is traced) and
+no scoped-VMEM guard (a TPU compiler limit).
 """
 
 from __future__ import annotations
@@ -67,18 +73,21 @@ from neuralmelting_tpu_torch.models.lj import LJCut
 from neuralmelting_tpu_torch.ops import cellmc_eam as CE
 from neuralmelting_tpu_torch.ops import cellmc_geom as CG
 from neuralmelting_tpu_torch.ops import cells as cells_ops
+from neuralmelting_tpu_torch.ops import ghosts as GH
 from neuralmelting_tpu_torch.ops import jrandom
+from neuralmelting_tpu_torch.ops import neighbors as NB
 from neuralmelting_tpu_torch.ops import potential_ops as PO
 from neuralmelting_tpu_torch.parallel import cellmc_sharded as CSH
 from neuralmelting_tpu_torch.parallel import ensemble as ENS
 from neuralmelting_tpu_torch.parallel import mesh
 from neuralmelting_tpu_torch.sampler import cellmc as SC
+from neuralmelting_tpu_torch.sampler import checkerboard as CB
+from neuralmelting_tpu_torch.sampler import dense as DS
 from neuralmelting_tpu_torch.sampler.state import ensemble_init
 
 _LATER = {
     "serial": "the JAX runner has none either (ROADMAP A13); one serial "
               "chain runs through sampler/serial.py, see golden.py",
-    "dense": "ROADMAP A14 (the dense/MXU engine is not ported)",
 }
 # the checkpoint extras that hold a row a replica: gathered whole before
 # rank 0 writes them
@@ -104,15 +113,19 @@ class RunSetup:
     slot_of: torch.Tensor      # (R,) replica -> slot
     natoms: int
     device: torch.device
-    engine: str = "gather"     # "gather" | "cellmc"
+    engine: str = "gather"     # "gather" | "cellmc" | "dense"
     mass: float = 1.0
     # gather engine: per-replica neighbour lists, the potential cache,
     # the list capacity and the checkerboard (stride 4 LJ, 2 EAM)
     nls: object = None
     aux: object = None
     cap: int = 0
-    cellcfg: object = None
+    cellcfg: object = None     # gather and dense engines
     table: object = None       # (ncolors, M) int64 colour table
+    # dense engine: the ghost map, its shell (rc + skin) and capacity
+    gms: object = None
+    shell: float = 0.0
+    gcap: int = 0
     geom: object = None
     slabs: object = None       # (x, y, z, ids[, rho]) leading-R
     slab_count: object = None  # (R, C) int32
@@ -170,9 +183,11 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     gather engine (the default) with its neighbour lists and the JAX
     runner's checkerboard (stride 4 at rc for LJ, stride 2 at 2 rc for
     EAM, with the density cache), on the cellmc engine binned into
-    slabs. ``device`` is the card unless the caller asks for "cpu";
-    without a usable GPU the default raises."""
-    if engine not in ("gather", "cellmc"):
+    slabs, on the dense engine with its ghost map (shell rc + skin,
+    capacity ``ghosts.suggest_gcap``) and the energies of the JAX set-up,
+    from neighbour lists. ``device`` is the card unless the caller asks
+    for "cpu"; without a usable GPU the default raises."""
+    if engine not in ("gather", "cellmc", "dense"):
         raise NotImplementedError(
             f"engine {engine!r} is not ported: {_LATER.get(engine, 'unknown engine')}")
     el = ELEMENTS[cfg.element]
@@ -180,6 +195,8 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
         raise ValueError(
             f"HMC (phmc={cfg.phmc}) is not offered on the cellmc engine: "
             "use the gather engine, or drop phmc")
+    if engine == "dense":
+        _refuse_dense(cfg, el)
     dev = resolve_device(device)
     us = units.get(el.units)
     pot, style = build_potential(cfg, setfl)
@@ -193,6 +210,23 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
     pos, box = make_supercell(el.lattice, el.lat_const, cfg.ncells)
     n = len(pos)
     slot_of = torch.arange(r, dtype=torch.int32, device=dev)
+    if engine == "dense":
+        states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
+                               dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev,
+                               seed=cfg.seed)
+        shell = pot.rc_host + cfg.skin
+        cellcfg = cells_ops.make_cell_config(box, pot.rc_host, stride=4,
+                                             dpos_cap=0.25)
+        return _install_ghosts(RunSetup(
+            cfg=cfg, pot=pot, style=style, us=us, press=press, temp=temp,
+            t_grid=t_grid, p_grid=p_grid, states=states, slot_of=slot_of,
+            natoms=n, device=dev, engine="dense", mass=el.mass,
+            cap=(cfg.max_neighbors if cfg.max_neighbors > 0
+                 else NB.suggest_capacity(n, box, shell)),
+            cellcfg=cellcfg, table=ENS.table_tensor(cellcfg, dev),
+            shell=shell, gcap=GH.suggest_gcap(n, box, shell),
+            moves_tried=torch.zeros((), dtype=torch.int64, device=dev)),
+            states)
     if engine == "gather":
         states = ensemble_init(pos, box, t_grid, p_grid, dpos0=cfg.dpos0,
                                dvol_frac0=cfg.dvol0, dt0=el.dt, device=dev,
@@ -250,6 +284,39 @@ def setup_run(cfg: RunConfig, setfl: Optional[str] = None,
         slab_count=slab_count, shift=shift,
         cell_tabs=torch.as_tensor(CG.geom_tables(geom), device=dev),
         moves_tried=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _refuse_dense(cfg: RunConfig, el):
+    """The JAX runner's refusals of the dense engine, in its order, before
+    any work (and, under several processes, before any collective: every
+    rank raises)."""
+    if cfg.phmc > 0:
+        raise ValueError(
+            f"HMC (phmc={cfg.phmc}) is not offered on the 'dense' engine — "
+            "use --engine gather (or serial), or drop --phmc. Deliberate "
+            "exclusion: README.md 'Known deviations'.")
+    if el.potential.style != "lj/cut":
+        raise ValueError("dense engine supports pair potentials only")
+    if _multi():
+        raise NotImplementedError(
+            "multi-host runner supports the gather and cellmc engines; the "
+            "dense/MXU engine is single-process (superseded by cellmc for "
+            "production scale; ROADMAP A14)")
+
+
+def _install_ghosts(setup: RunSetup, states) -> RunSetup:
+    """The dense setup on these states: pe and the virial from neighbour
+    lists, as the JAX set-up and restore take them (the lists are not
+    kept), and the ghost map built from the positions."""
+    nls, _ = ENS.build_ensemble_nl(setup.pot, states, skin=setup.cfg.skin,
+                                   capacity=setup.cap)
+    pe, vir = PO.ops_for_style("pair").total(setup.pot, states.pos,
+                                             states.box, nls)
+    del nls
+    states = states.replace(pe=pe, virial=vir)
+    return dataclasses.replace(
+        setup, states=states,
+        gms=DS.build_ensemble_ghosts(states, setup.shell, setup.gcap))
 
 
 def _install_lists(setup: RunSetup, states, nls) -> RunSetup:
@@ -326,7 +393,11 @@ def checkpoint_extras(setup: RunSetup) -> dict:
     its host draws need nothing, since their key chain is rederived from
     the config's seed and the sweep counter. EAM's density (the
     gather cache, the cellmc slab) is recomputed at restore, as exactly
-    as the last record computed it."""
+    as the last record computed it. Dense: every array of the ghost map,
+    whose unwrapped rows and rescaled shell the states do not give (the
+    states' pe and virial are the last record's dense totals)."""
+    if setup.engine == "dense":
+        return {"gh_" + f: getattr(setup.gms, f) for f in GH.FIELDS}
     if setup.engine == "gather":
         return {"nl_ref_pos": setup.nls.ref_pos,
                 "nl_ref_box": setup.nls.ref_box,
@@ -352,8 +423,12 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     through ``_rebind_cellmc`` (whose kcap grow-and-retry absorbs a
     compressed box), with a warning. Either way the host draws go on
     from the key chain of ``cfg.seed`` at the states' sweep counter, on
-    any device. Warns when the stored config differs from the current
-    one.
+    any device. Dense: a port checkpoint brings its ghost map, which
+    goes on as it was, and the states keep their record energies; a JAX
+    package checkpoint has none: its ghosts are built from its positions
+    and its energies taken from neighbour lists, as the JAX runner
+    restores, with a warning. Warns when the stored config differs from
+    the current one.
 
     Under more than one process: a barrier first, so that no rank reads
     a checkpoint rank 0 is still writing; then every rank loads the same
@@ -376,6 +451,9 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
             f"this run's {(r, setup.natoms, 3)} (replicas, atoms)")
     if setup.engine == "gather":
         return _restore_gather(setup, states, slot_of, extra)
+    if setup.engine == "dense":
+        return _restore_dense(setup, states, slot_of, extra,
+                              checkpoint_path)
     dev = setup.device
     xyz = ids = None
     if "slab_ids" in extra:
@@ -401,6 +479,24 @@ def restore_setup(setup: RunSetup, checkpoint_path: str) -> RunSetup:
     shift = torch.as_tensor(extra["shift"], dtype=torch.float32, device=dev)
     slabs = tuple(xyz[:, a].contiguous() for a in range(3)) + (ids,)
     return _install_slabs(setup, geom, slabs, count, shift)
+
+
+def _restore_dense(setup: RunSetup, states, slot_of, extra,
+                   checkpoint_path: str) -> RunSetup:
+    setup = dataclasses.replace(setup, slot_of=slot_of)
+    if "gh_pos_ext" not in extra:
+        warnings.warn(f"checkpoint {checkpoint_path} holds no ghost map: "
+                      "its ghosts are built from its positions and its "
+                      "energies taken from neighbour lists, as the JAX "
+                      "runner restores", RuntimeWarning, stacklevel=3)
+        return _install_ghosts(setup, states)
+    gms = GH.GhostMap(**{f: torch.as_tensor(extra["gh_" + f],
+                                            device=setup.device)
+                         for f in GH.FIELDS})
+    if gms.gcap != setup.gcap:
+        raise ValueError(f"checkpoint ghost capacity {gms.gcap}, this "
+                         f"run's {setup.gcap}")
+    return dataclasses.replace(setup, states=states, gms=gms)
 
 
 def _restore_gather(setup: RunSetup, states, slot_of, extra) -> RunSetup:
@@ -506,6 +602,9 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
     if setup.engine == "gather":
         setup, recs, frames, hist, xacc, diag_host = _run_gather(
             setup, nrecords, write_traj)
+    elif setup.engine == "dense":
+        setup, recs, frames, hist, xacc, diag_host = _run_dense(
+            setup, nrecords, write_traj)
     else:
         setup, recs, frames, hist, xacc, diag_host = _run_cellmc(
             setup, nrecords, write_traj, exchange)
@@ -542,6 +641,18 @@ def run_sampling(setup: RunSetup, outdir: Optional[str] = None,
 
 
 _GATHER_DIAG = {1: "NL_OVERFLOW", 2: "CB_INVALID", 8: "NL_STALE"}
+_DENSE_DIAG = {CB.DIAG_CB_INVALID: "CB_INVALID",
+               DS.DIAG_GHOST_OVERFLOW: "GHOST_OVERFLOW"}
+def _warn_diag(diag_host: int, names: dict, advice: str = ""):
+    """A chunk's warning for nonzero diag bits, named from ``names``."""
+    if diag_host:
+        bits = "|".join(v for k, v in names.items() if diag_host & k)
+        warnings.warn(
+            f"sampling chunk finished with diagnostic flags {diag_host} "
+            f"({bits}): outputs may be physically wrong{advice}",
+            RuntimeWarning, stacklevel=4)
+
+
 _CELLMC_DIAG = {SC.DIAG_CB_INVALID: "CB_INVALID",
                 SC.DIAG_SLAB_OVERFLOW: "SLAB_OVERFLOW",
                 SC.DIAG_SHIFT_DESYNC: "SHIFT_DESYNC"}
@@ -584,14 +695,49 @@ def _run_gather(setup: RunSetup, nrecords: int, write_traj: bool):
                   jrandom.key(cfg.seed + 1).to(setup.device), setup.pot,
                   setup.table, setup.t_grid, setup.p_grid)
     diag_host = int(diag)
-    if diag_host != 0:
-        names = [v for k, v in _GATHER_DIAG.items() if diag_host & k]
-        warnings.warn(
-            f"sampling chunk finished with diagnostic flags {diag_host} "
-            f"({'|'.join(names)}): outputs may be physically wrong — "
-            "increase max_neighbors/skin or reduce step caps",
-            RuntimeWarning, stacklevel=3)
+    _warn_diag(diag_host, _GATHER_DIAG,
+               " — increase max_neighbors/skin or reduce step caps")
     setup = dataclasses.replace(setup, states=states, nls=nls, aux=aux,
+                                slot_of=slot_of,
+                                moves_tried=setup.moves_tried + tried)
+    return setup, recs, frames, hist, xacc, diag_host
+
+
+def dense_run_kwargs(setup: RunSetup, nrecords: int,
+                     write_traj: bool) -> dict:
+    """The keyword arguments of ``sampler.dense.make_dense_run_fn`` (after
+    kb, p2e and the cell config) for a chunk of ``setup``."""
+    cfg = setup.cfg
+    return dict(
+        shell=setup.shell, gcap=setup.gcap, mod=cfg.mod, nrecords=nrecords,
+        npasses=CB.default_npasses(setup.natoms, setup.cellcfg),
+        nvol=nvol_per_sweep(cfg, setup.natoms), factor=cfg.adapt_factor,
+        targets=(cfg.acc_target_pos, cfg.acc_target_vol,
+                 cfg.acc_target_hmc),
+        exchange=True, npress=len(setup.press), ntemp=len(setup.temp),
+        write_traj=write_traj)
+
+
+def _run_dense(setup: RunSetup, nrecords: int, write_traj: bool):
+    """One dense chunk with exchange (``runner.py:611-631`` of the JAX
+    package): the run function of ``sampler/dense.py``, kept with the
+    setup like gather's, with the exchange key ``key(cfg.seed + 1)``."""
+    cfg = setup.cfg
+    kw = dense_run_kwargs(setup, nrecords, write_traj)
+    key = ("dense", setup.pot, setup.us.kb, setup.us.p2e,
+           setup.cellcfg.ncell) + tuple(kw.items())
+    if key not in setup.run_fns:
+        setup.run_fns[key] = DS.make_dense_run_fn(
+            setup.us.kb, setup.us.p2e, setup.cellcfg, **kw)
+    (states, gms, slot_of, recs, frames, hist, xacc, diag,
+     tried) = setup.run_fns[key](
+        setup.states, setup.gms, setup.slot_of,
+        jrandom.key(cfg.seed + 1).to(setup.device), setup.pot, setup.table,
+        setup.t_grid, setup.p_grid)
+    diag_host = int(diag)
+    _warn_diag(diag_host, _DENSE_DIAG,
+               " — increase the skin or reduce step caps")
+    setup = dataclasses.replace(setup, states=states, gms=gms,
                                 slot_of=slot_of,
                                 moves_tried=setup.moves_tried + tried)
     return setup, recs, frames, hist, xacc, diag_host
@@ -655,12 +801,7 @@ def _run_cellmc(setup: RunSetup, nrecords: int, write_traj: bool,
                 setup.geom, kcap=setup.geom.kcap + 8))
             continue
         break
-    if diag_host != 0:
-        names = [v for k, v in _CELLMC_DIAG.items() if diag_host & k]
-        warnings.warn(
-            f"sampling chunk finished with diagnostic flags {diag_host} "
-            f"({'|'.join(names)}): outputs may be physically wrong",
-            RuntimeWarning, stacklevel=3)
+    _warn_diag(diag_host, _CELLMC_DIAG)
     setup = dataclasses.replace(
         setup, states=states, slabs=slabs, slab_count=slab_count,
         shift=shift, slot_of=slot_of, moves_tried=setup.moves_tried + tried)

@@ -81,19 +81,46 @@ def cb_dpos_margin(pops, pot, cellcfg: cells_ops.CellConfig, box):
     return (cellcfg.stride - 1) * w_min - pops.range_factor * pot.rc
 
 
+def pass_floats(pkey, ncolors: int, m: int):
+    """``pass_draws`` with the displacements as the floats in [0, 1) that
+    ``scale_disp`` scales: a block of sweeps' draws made before their
+    step sizes are known."""
+    ksh, kperm, kcol = jrandom.split(pkey, 3).unbind(-2)
+    kpick, kdisp, kacc = jrandom.split(jrandom.split(kcol, ncolors),
+                                       3).unbind(-2)
+    return (jrandom.uniform(ksh, (3,)), jrandom.permutation(kperm, ncolors),
+            jrandom.uniform(kpick, (m,)),
+            jrandom.floats01(jrandom.random_bits(kdisp, (m, 3))),
+            torch.log(jrandom.uniform(kacc, (m,), 1e-38, 1.0)))
+
+
+def scale_disp(f, dpos_eff):
+    """Displacement floats in [0, 1) (R, ...) as ``uniform(kdisp, ...,
+    -dpos_eff, dpos_eff)`` gives them, dpos_eff (R,)."""
+    d = dpos_eff.reshape((-1,) + (1,) * (f.dim() - 1))
+    return jrandom.scale_uniform(f, -d, d)
+
+
+# bytes of state-free draws one stage makes at most (``draw_spans``)
+DRAW_BYTES = 1 << 28
+
+
+def draw_spans(mod: int, movers: int) -> list:
+    """The spans of sweeps into which a record block of ``mod`` sweeps
+    cuts its state-free draws, ``movers`` trials a sweep over the
+    ensemble each drawing five f32 numbers: as few as keep a span's draws
+    within DRAW_BYTES."""
+    span = max(1, min(mod, DRAW_BYTES // max(1, 20 * movers)))
+    return [min(span, mod - s) for s in range(0, mod, span)]
+
+
 def pass_draws(pkey, ncolors: int, m: int, dpos_eff):
     """A pass's draws from its keys (R, 2), or several passes' from (R, P,
     2): shift (..., 3), colour order (..., C), pick uniforms (..., C, M),
     displacements (..., C, M, 3) in [-dpos_eff, dpos_eff) (dpos_eff (R,))
     and ln u (..., C, M)."""
-    ksh, kperm, kcol = jrandom.split(pkey, 3).unbind(-2)
-    kpick, kdisp, kacc = jrandom.split(jrandom.split(kcol, ncolors),
-                                       3).unbind(-2)
-    d = dpos_eff.reshape((-1,) + (1,) * (pkey.dim() + 1))
-    return (jrandom.uniform(ksh, (3,)), jrandom.permutation(kperm, ncolors),
-            jrandom.uniform(kpick, (m,)),
-            jrandom.uniform(kdisp, (m, 3), -d, d),
-            torch.log(jrandom.uniform(kacc, (m,), 1e-38, 1.0)))
+    shift, order, u, f, ln_u = pass_floats(pkey, ncolors, m)
+    return shift, order, u, scale_disp(f, dpos_eff), ln_u
 
 
 def pick_movers(table, colors, count, start, sorted_ids, u):
@@ -209,21 +236,26 @@ def make_cb_pass_fn(kb, cellcfg: cells_ops.CellConfig, style: str = "pair",
 def make_cb_tail_fn(kb, p2e, nvol: int = 1, nhmc: int = 0,
                     nstps: int = 16, mass: float = 1.0,
                     style: str = "pair"):
-    """Build ``tail(pot, states, nl, aux, kvol, khmc) -> (states, aux)``:
-    the whole-configuration moves ending a sweep (volume trials, then
-    HMC), every replica on its own keys (R, 2). The caller must ensure
-    the list covers the worst volume shrink and the HMC drift budget
-    (see parallel/ensemble.py). Returns a new state, and for EAM the
+    """Build ``tail(pot, states, nl, aux, kvol, khmc, vdraws=None) ->
+    (states, aux)``: the whole-configuration moves ending a sweep (volume
+    trials, then HMC), every replica on its own keys (R, 2); ``vdraws``,
+    the volume trials' (2u - 1, ln u) (R, nvol) made beforehand from
+    ``kvol`` (``moves.volume_draws``), then ``kvol`` is not read. The
+    caller must ensure the list covers the worst volume shrink and the
+    HMC drift budget (see parallel/ensemble.py). Returns a new state, and for EAM the
     density cache rebuilt from scratch after those moves."""
     pops = PO.ops_for_style(style)
 
-    def tail(pot, states, nl, aux, kvol, khmc):
+    def tail(pot, states, nl, aux, kvol, khmc, vdraws=None):
         backend = nl_backend(pops, nl)
         st = dataclasses.replace(states)
         nbeta = -(1.0 / (kb * st.temp))
         n = st.pos.shape[-2]
         for v in range(nvol):
-            v2u, ln_u = moves.volume_draws(jrandom.fold_in(kvol, v))
+            if vdraws is None:
+                v2u, ln_u = moves.volume_draws(jrandom.fold_in(kvol, v))
+            else:
+                v2u, ln_u = vdraws[0][:, v], vdraws[1][:, v]
             acc, _ = moves.volume(pot, p2e, backend, st, nbeta, v2u, ln_u)
             st.nav = st.nav + acc.to(torch.int32)
             st.ntv = st.ntv + 1

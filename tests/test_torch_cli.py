@@ -17,9 +17,11 @@
   rdf npz give T_m within one grid spacing (as test_slice_tm_matches_jax:
   the classifiers start from different initial weights); ``post
   --no-plot`` prints one row a pressure;
-- ``--engine dense`` raises, naming its ROADMAP item, and the
-  multi-process flags one without the others; without CUDA the stages'
-  default device raises. The staged runs
+- ``--engine dense`` under more than one process (the process count
+  patched) raises the JAX runner's NotImplementedError, naming its
+  ROADMAP item (tests/test_torch_dense_runner.py runs it in one), and
+  the multi-process flags one without the others; without CUDA the
+  stages' default device raises. The staged runs
   name ``--engine cellmc`` (the default is gather, as in the JAX package,
   for LJ and EAM; tests/test_torch_gather_runner.py and
   tests/test_torch_gather_eam_runner.py run it).
@@ -291,7 +293,11 @@ def test_neural_and_post(features, capsys):
 
 
 @pytest.mark.parametrize("engine,item", [("dense", "A14")])
-def test_remcmc_unported_engines_raise(tmp_path, engine, item):
+def test_remcmc_unported_engines_raise(tmp_path, monkeypatch, engine, item):
+    """The dense engine runs in one process; like the JAX runner it
+    refuses several, before any collective."""
+    from neuralmelting_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "process_count", lambda: 2)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         remcmc.main(MINI + ["-o", str(tmp_path), "--device", "cpu",
                             "--engine", engine])

@@ -1,15 +1,16 @@
 """The port's slice as a whole.
 
 (a) In a fresh interpreter: import every module of neuralmelting_tpu_torch,
-    run its CPU pipeline at a tiny LJ config and one EAM chunk on each
-    engine, a short
+    run its CPU pipeline at a tiny LJ config, a dense LJ chunk and one
+    EAM chunk on each engine, a short
     serial chain with its golden-file writers, a P1 plain variant, a
     sweep of the loop-based CPU reference (refimpl/cpu_ref.py) and the
     long-rc run's configuration (longrc_run.py);
     jax, flax, optax and every module of the JAX package
     neuralmelting_tpu must stay out of sys.modules.
 (b) The entry points: unported engines raise naming their ROADMAP item,
-    EAM runs on the gather engine, and without a GPU the defaults raise.
+    the dense engine refuses EAM as the JAX runner does, EAM runs on the
+    gather engine, and without a GPU the defaults raise.
 
 The port's pipeline against the JAX package's at a tiny config is
 tests/test_torch_pipeline_slice.py.
@@ -42,6 +43,9 @@ res = melting_pipeline(cfg, nbins=16, model="mlp", epochs=3, band=1,
 assert res.diag == 0 and res.probs.shape == (1, 2), res
 import os, tempfile
 from neuralmelting_tpu_torch import runner
+setup = runner.setup_run(cfg, engine="dense", device="cpu")
+setup, recs, frames, hist, xacc, diag = runner.run_sampling(setup)
+assert diag == 0 and setup.gms.pos_ext.shape[0] == 2, diag
 from neuralmelting_tpu_torch.models import eam_gen
 table = os.path.join(tempfile.mkdtemp(), "al38.eam.alloy")
 eam_gen.write_setfl(table, rc=3.8)
@@ -86,16 +90,18 @@ def test_port_imports_and_runs_without_jax():
 
 def test_port_rejects_unported_engines_and_missing_gpu(tmp_path):
     """Unported engines raise naming their ROADMAP item, for LJ and EAM
-    alike; EAM runs on the gather engine (on the CPU when asked); the
-    entry points run on the card unless asked for the CPU, so without a
-    GPU their defaults raise."""
+    alike; the dense engine refuses EAM with the JAX runner's ValueError;
+    EAM runs on the gather engine (on the CPU when asked); the entry
+    points run on the card unless asked for the CPU, so without a GPU
+    their defaults raise."""
     from neuralmelting_tpu_torch.models import eam_gen
     cfg = RunConfig(ncells=(4, 4, 4), npress=1, ntemp=2)
     al = RunConfig(element="AL", ncells=(4, 4, 4), npress=1, ntemp=2)
     for c in (cfg, al):
-        for engine in ("dense", "serial"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                TR.setup_run(c, engine=engine)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TR.setup_run(c, engine="serial")
+    with pytest.raises(ValueError, match="pair potentials only"):
+        TR.setup_run(al, engine="dense")
     table = str(tmp_path / "al38.eam.alloy")
     eam_gen.write_setfl(table, rc=3.8)
     s = TR.setup_run(al, setfl=table, engine="gather", device="cpu")
